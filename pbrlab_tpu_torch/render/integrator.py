@@ -1,0 +1,622 @@
+"""Wavefront path-tracing integrator, forward render (port of
+pbrlab_tpu.render.integrator: `wavefront_step`, `render_lanes_wavefront`,
+`render`).
+
+One SoA `PathState` of N lanes; every `wavefront_step` advances each lane
+by one trace: a surface bounce, or one step of the random-walk SSS
+("volume mode"). Next-event estimation is deferred: the shadow ray a step
+emits is answered inside the next step's closest-hit launch (the dual
+dense_v4 kernel). RNG streams are per lane and counter-seeded, so a
+lane's result does not depend on where it sits in the wavefront.
+
+The JAX package's `lax.while_loop` / `lax.cond` are Python control flow
+here. The loop test and the volume-window test read a device value, one
+host sync each per trip. Everything runs under `torch.no_grad()`: the
+render is forward-only, as the JAX package stop-gradients every trace.
+
+Not in this slice: the differentiable scan path (`render_lanes`,
+`render_scan`), hair, textures, instancing, sharding, and the JAX
+package's PBRLAB_* environment knobs (ROADMAP A9-A16).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core import rng as prng
+from ..core.math import (EPS, F32_EPS, INF, saturate, spectrum_norm, vdot,
+                         vnormalize)
+from ..core.onb import branchless_onb, to_global, to_local
+from ..core.sampling import (cosine_sample_hemisphere, power_heuristic_weight,
+                             uniform_sample_sphere)
+from ..ops.dense_v4 import slab_interval
+from ..ops.intersect import trace_scene, trace_scene_dual
+from ..scene.lights import sample_all_light
+from ..scene.materials import unpack_material_rows
+from ..scene.scene import build_fat_tables
+from ..shading import principled
+from ..shading.principled import PrincipledBsdf
+from ..shading.sss import sample_scatter_distance, scattering_coefficients
+from .camera import generate_rays
+
+MODE_SURFACE = 0
+MODE_VOLUME = 1
+
+FRONT = 0
+BACK = 1
+AMBIGUOUS = 2
+
+
+class PathState(NamedTuple):
+    org: torch.Tensor  # [N,3]
+    direction: torch.Tensor  # [N,3]
+    min_t: torch.Tensor  # [N]
+    throughput: torch.Tensor  # [N,3]
+    contribution: torch.Tensor  # [N,3]
+    bsdf_pdf: torch.Tensor  # [N] previous bounce bsdf pdf (MIS)
+    rng: torch.Tensor  # [N] uint32 value in int64 (core.rng)
+    alive: torch.Tensor  # [N] bool
+    first: torch.Tensor  # [N] bool: no surface shade done yet
+    mode: torch.Tensor  # [N] int32
+    vol_first: torch.Tensor  # [N] bool: next volume step keeps entry dir
+    sss_sigma_t: torch.Tensor  # [N,3]
+    sss_sigma_s: torch.Tensor  # [N,3]
+    sss_tp: torch.Tensor  # [N,3] walk throughput
+    sss_instance: torch.Tensor  # [N] entry instance id
+    lane: torch.Tensor  # [N] claimed pixel
+    sample: torch.Tensor  # [N] sample index within the pixel
+    depth: torch.Tensor  # [N] full steps taken for the current sample
+    nee_dir: torch.Tensor  # [N,3] pending shadow direction (origin = org)
+    nee_contrib: torch.Tensor  # [N,3] contribution if unoccluded
+    nee_maxt: torch.Tensor  # [N] shadow max distance; < 0 = no pending
+
+
+def _signature_word(scene, direction, org, min_t):
+    """Coarse BVH-subtree-hit signature per lane: bit i is set iff the
+    ray's slab test can hit subtree i of the commit-time cut
+    (scene["sig_aabb"], <= 29 subtrees). Sorting lanes by it keeps the
+    trace kernels' per-group survivor unions tight."""
+    aabb = scene["sig_aabb"]
+    tnear, tfar = slab_interval(aabb, org, direction, min_t)
+    mask = tnear <= tfar * 1.00000024
+    bits = torch.arange(aabb.shape[1], device=org.device)
+    return (mask.to(torch.int64) << bits).sum(dim=1)
+
+
+# --- packed loop carry ---------------------------------------------------
+# The loop state rides as ONE [N, 39] float32 matrix, so the compaction
+# permutes it with one row gather. unpack(pack(s)) == s exactly (ints are
+# < 2^24; the rng word rides bit-cast).
+_PACK_COLS = 39  # layout below; update both functions together
+
+
+def pack_state(state: PathState) -> torch.Tensor:
+    """PathState -> [N, 39] f32 rows (org 0:3 | dir 3:6 | min_t 6 |
+    throughput 7:10 | contribution 10:13 | bsdf_pdf 13 | rng 14 (bit-cast)
+    | alive 15 | first 16 | mode 17 | vol_first 18 | sss_sigma_t 19:22 |
+    sss_sigma_s 22:25 | sss_tp 25:28 | sss_instance 28 | lane 29 |
+    sample 30 | depth 31 | nee_dir 32:35 | nee_contrib 35:38 | nee_maxt 38)."""
+    def col(x):
+        return x.to(torch.float32)[:, None]
+
+    return torch.cat([
+        state.org, state.direction, col(state.min_t), state.throughput,
+        state.contribution, col(state.bsdf_pdf),
+        prng.state_to_f32(state.rng)[:, None], col(state.alive),
+        col(state.first), col(state.mode), col(state.vol_first),
+        state.sss_sigma_t, state.sss_sigma_s, state.sss_tp,
+        col(state.sss_instance), col(state.lane), col(state.sample),
+        col(state.depth), state.nee_dir, state.nee_contrib,
+        col(state.nee_maxt),
+    ], dim=1)
+
+
+def unpack_state(packed: torch.Tensor) -> PathState:
+    """[N, 39] rows -> PathState (slices)."""
+    i32 = torch.int32
+    return PathState(
+        org=packed[:, 0:3], direction=packed[:, 3:6], min_t=packed[:, 6],
+        throughput=packed[:, 7:10], contribution=packed[:, 10:13],
+        bsdf_pdf=packed[:, 13], rng=prng.state_from_f32(packed[:, 14]),
+        alive=packed[:, 15] > 0.5, first=packed[:, 16] > 0.5,
+        mode=packed[:, 17].to(i32), vol_first=packed[:, 18] > 0.5,
+        sss_sigma_t=packed[:, 19:22], sss_sigma_s=packed[:, 22:25],
+        sss_tp=packed[:, 25:28], sss_instance=packed[:, 28].to(i32),
+        lane=packed[:, 29].to(i32), sample=packed[:, 30].to(i32),
+        depth=packed[:, 31].to(i32), nee_dir=packed[:, 32:35],
+        nee_contrib=packed[:, 35:38], nee_maxt=packed[:, 38])
+
+
+def compact_packed(packed: torch.Tensor, scene) -> torch.Tensor:
+    """Sort lanes by (alive volume, alive surface, dead) then the subtree
+    signature, with one gather of the packed rows. Alive volume lanes come
+    first, so the k_volume substeps can run on a leading window."""
+    sig = _signature_word(scene, packed[:, 3:6], packed[:, 0:3], packed[:, 6])
+    mode = packed[:, 17].to(torch.int64)
+    primary = torch.where(packed[:, 15] > 0.5, 1 - mode, 2 + mode)
+    return packed[torch.argsort((primary << 29) | sig, stable=True)]
+
+
+def _classify(direction, ng, ns):
+    """Front/back/ambiguous (shader-utils.h:151-159)."""
+    dg = vdot(direction, ng)
+    ds = vdot(direction, ns)
+    return torch.where((dg < 0.0) & (ds < 0.0), FRONT,
+                       torch.where((dg > 0.0) & (ds > 0.0), BACK, AMBIGUOUS))
+
+
+def _surface_attribs(frow, u, v):
+    """Shading attributes (ng, ns, uv) from gathered fat face rows
+    (scene.cc:210-249; layout: scene.build_fat_tables)."""
+    ng = frow[:, 0:3]
+    corner_ns = frow[:, 3:12].reshape(-1, 3, 3)
+    w0 = (1.0 - u - v)[..., None]
+    ns_lerp = vnormalize(corner_ns[:, 0] * w0 + corner_ns[:, 1] * u[..., None]
+                         + corner_ns[:, 2] * v[..., None])
+    ns = torch.where(frow[:, 18:19] > 0.0, ns_lerp, ng)
+    corner_uv = frow[:, 12:18].reshape(-1, 3, 2)
+    uv_lerp = (corner_uv[:, 0] * w0 + corner_uv[:, 1] * u[..., None]
+               + corner_uv[:, 2] * v[..., None])
+    uv = torch.where(frow[:, 19:20] > 0.0, uv_lerp, torch.stack([u, v], dim=-1))
+    return ng, ns, uv
+
+
+def _gather_material(scene, mat_id):
+    idx = torch.clamp(mat_id, 0, scene["mat_fat"].shape[0] - 1).to(torch.int64)
+    return unpack_material_rows(scene["mat_fat"][idx])
+
+
+def _fetch_colors(scene, mat):
+    """base_color / subsurface_color (constants; textured scenes are not
+    ported yet)."""
+    if "texture_quad" in scene:
+        raise NotImplementedError("textures are not ported yet (ROADMAP A12)")
+    return mat["base_color"], mat["subsurface_color"]
+
+
+def _nee(scene, pos, geom_normal, omega_out_local, ex, ey, ez,
+         bsdf: PrincipledBsdf, u0, u1, u2, shade_mask):
+    """Deferred next-event estimation (DirectIllumination,
+    shader-utils.h:166-212) without the trace: returns
+    (contribution if unoccluded, shadow direction, shadow max t, -1 where
+    there is no query). The next step's trace launch answers the query."""
+    light = sample_all_light(scene, u0, u1, u2)
+    to_light = light.position - pos
+    dist = torch.sqrt(torch.clamp(vdot(to_light, to_light), min=1e-12))
+    wl = to_light / dist[..., None]
+    wl_dot_nl = -vdot(wl, light.normal)
+    wl_dot_np = vdot(wl, geom_normal)
+    denom = wl_dot_nl * wl_dot_np
+    pdf_sigma = torch.clamp(torch.abs(
+        light.pdf * dist * dist
+        / torch.where(torch.abs(denom) > 1e-12, denom, 1e-12)), max=1e30)
+    candidate = (shade_mask & light.valid & (wl_dot_nl > 0.0)
+                 & (wl_dot_np > 0.0) & (pdf_sigma > 0.0))
+    shadow_max = torch.clamp(dist - EPS, min=EPS)
+    f, pdf_b = principled.eval_bsdf(to_local(wl, ex, ey, ez),
+                                    omega_out_local, bsdf)
+    w = power_heuristic_weight(pdf_sigma, pdf_b)
+    contrib = f * light.emission * (w / torch.clamp(pdf_sigma, min=1e-12))[..., None]
+    contrib = torch.where(
+        candidate[..., None] & torch.isfinite(contrib).all(-1, keepdim=True),
+        contrib, 0.0)
+    return contrib, wl, torch.where(candidate, shadow_max, -1.0)
+
+
+def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
+                   resolve_pending: bool = False) -> PathState:
+    """Advance every lane by one trace.
+
+    freeze_surface=True runs a volume-only substep: surface-mode lanes do
+    not trace, shade or draw, while volume-mode lanes advance one
+    random-walk step (with the diffuse re-shade and deferred NEE on a valid
+    exit). Pass resolve_pending=True on the first substep of a group:
+    volume-entry lanes' deferred NEE must resolve before the walk moves
+    their origin. Full steps always resolve every pending query.
+
+    Every trace goes through dense_v4. On the TPU the JAX package swaps in
+    dense_v5 for unwindowed substeps (`sparse_backend`, a speed choice for
+    mostly-dead wavefronts); the trace contract is the same, so the port
+    keeps dense_v4 there until dense_v5 is ported.
+    """
+    n = state.org.shape[0]
+    dev = state.org.device
+    surface_mode = state.mode == MODE_SURFACE
+    volume_mode = state.mode == MODE_VOLUME
+
+    # ---- pre-trace: volume direction + distance draws (fixed budget) ----
+    rng_state, (ud1, ud2, uc, ut) = prng.draw_n(state.rng, 4)
+    need_new_dir = volume_mode & ~state.vol_first
+    direction = torch.where(need_new_dir[..., None],
+                            uniform_sample_sphere(ud1, ud2), state.direction)
+    min_t = torch.where(need_new_dir, 0.0, state.min_t)
+    t_scatter, channel_pdf = sample_scatter_distance(
+        state.sss_tp, state.sss_sigma_s, state.sss_sigma_t, uc, ut)
+    max_t = torch.where(volume_mode, t_scatter,
+                        -1.0 if freeze_surface else INF)
+    max_t = torch.where(state.alive, max_t, -1.0)  # dead lanes: no traversal
+
+    # ---- one trace launch: closest hit (+ the pending shadow queries) ----
+    nee_active = state.nee_maxt >= 0.0
+    contribution = state.contribution
+    resolved_now = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if not freeze_surface or resolve_pending:
+        # full steps resolve every pending query; the first substep only
+        # those of alive volume lanes, whose origin the walk moves next
+        resolve_mask = (volume_mode & state.alive & nee_active
+                        if freeze_surface else nee_active)
+        hit, occ_prev = trace_scene_dual(
+            scene, state.org, direction, min_t, max_t, state.nee_dir,
+            torch.full((n,), EPS, device=dev),
+            torch.where(resolve_mask, state.nee_maxt, -1.0))
+        contribution = contribution + torch.where(
+            (resolve_mask & ~occ_prev)[..., None], state.nee_contrib, 0.0)
+        resolved_now = resolve_mask
+    else:
+        # later substeps resolve nothing (the JAX package's all-dead
+        # shadow trace here has no effect and is skipped)
+        hit = trace_scene(scene, state.org, direction, min_t, max_t)
+    prim = hit["prim"]
+    hit_ok = prim >= 0
+    t_eff = torch.where(volume_mode & ~hit_ok, t_scatter, hit["t"])
+    # missed surface lanes carry t = INF; shade them at a finite dummy t
+    t_shade = torch.where(hit_ok | volume_mode, t_eff, 1.0)
+    pos = state.org + t_shade[..., None] * direction
+    frow = scene["face_fat"][torch.clamp(prim, min=0).to(torch.int64)]
+    ng, ns, _uv = _surface_attribs(frow, hit["u"], hit["v"])
+    face_dir = _classify(direction, ng, ns)
+    hit_instance = frow[:, 25].to(torch.int32)
+
+    alive = state.alive
+    throughput = state.throughput
+
+    # =========== SURFACE lanes: emission MIS + russian roulette ==========
+    s_alive = alive & surface_mode
+    if freeze_surface:
+        s_alive = torch.zeros_like(s_alive)  # surface lanes pass through
+    pdf_area = frow[:, 21]
+    nsd = vdot(ns, direction)
+    a2sa = torch.abs(t_shade * t_shade
+                     / torch.where(torch.abs(nsd) > 1e-12, nsd, 1e-12))
+    mis_w = torch.where(state.first, 1.0,
+                        power_heuristic_weight(state.bsdf_pdf, pdf_area * a2sa))
+    add_em = s_alive & hit_ok & (face_dir == FRONT) & (pdf_area > 0.0)
+    contribution = contribution + torch.where(
+        add_em[..., None], mis_w[..., None] * frow[:, 22:25] * throughput, 0.0)
+
+    rng_state, urr = prng.draw(rng_state)
+    rr_p = spectrum_norm(throughput)
+    rr_die = rr_p < urr
+    throughput = torch.where(
+        (s_alive & ~rr_die)[..., None],
+        throughput / torch.clamp(rr_p, min=1e-12)[..., None], throughput)
+    s_alive = s_alive & hit_ok & ~rr_die
+
+    # ================== VOLUME lanes: one walk step ======================
+    v_alive = alive & volume_mode
+    rng_state, uvrr = prng.draw(rng_state)
+    trans = torch.exp(-state.sss_sigma_t * t_eff[..., None])
+    pdf_hit = vdot(channel_pdf, trans)
+    pdf_scatter = vdot(channel_pdf, state.sss_sigma_t * trans)
+    sss_tp_hit = state.sss_tp * trans / torch.clamp(pdf_hit, min=1e-12)[..., None]
+    sss_tp_scat = (state.sss_tp * (state.sss_sigma_s * trans)
+                   / torch.clamp(pdf_scatter, min=1e-12)[..., None])
+    sss_tp = torch.where(hit_ok[..., None], sss_tp_hit, sss_tp_scat)
+    # a valid exit leaves through a back face of the entry instance
+    # (random-walk-sss.h:371-384); any other hit kills the path
+    exit_ok = (v_alive & hit_ok & (hit_instance == state.sss_instance)
+               & (face_dir == BACK))
+    v_dead_exit = v_alive & hit_ok & ~exit_ok
+    # scatter lanes: volume russian roulette (random-walk-sss.h:349-358)
+    v_scatter = v_alive & ~hit_ok
+    pv = saturate(spectrum_norm(sss_tp))
+    v_rr_die = v_scatter & (uvrr >= pv)
+    sss_tp = torch.where(v_scatter[..., None],
+                         sss_tp / torch.clamp(pv, min=1e-12)[..., None], sss_tp)
+
+    # ===================== SHADE (surface hit or SSS exit) ===============
+    is_exit = exit_ok
+    s_shade = s_alive & (face_dir != AMBIGUOUS)
+    s_dead_amb = s_alive & (face_dir == AMBIGUOUS)
+    shade_mask = s_shade | is_exit
+
+    mat = _gather_material(scene, frow[:, 20].to(torch.int32))
+    # frame: ez = front ? ns : -ns (cycles-principled-shader.cc:427-432);
+    # an SSS exit keeps +ns (random-walk-sss.h:386-398)
+    ez = torch.where(is_exit[..., None] | (face_dir == FRONT)[..., None],
+                     ns, -ns)
+    ex, ey = branchless_onb(ez)
+    omega_out = to_local(torch.where(is_exit[..., None], direction, -direction),
+                         ex, ey, ez)
+
+    base_color, sub_color = _fetch_colors(scene, mat)
+    bsdf = principled.param_to_bsdf(mat, base_color, sub_color)
+    exit_bsdf = principled.diffuse_only_bsdf(sss_tp)
+    bsdf = PrincipledBsdf(*[
+        torch.where(is_exit.reshape(is_exit.shape + (1,) * (a.ndim - 1)), b, a)
+        for a, b in zip(bsdf, exit_bsdf)])
+
+    # --- NEE: deferred; the shade point is the lane's org until its next
+    # trace, so the parked query's implicit origin stays valid ---
+    rng_state, un = prng.draw_n(rng_state, 3)
+    keep_maxt = torch.where(resolved_now, -1.0, state.nee_maxt)
+    nee_c, wl_nee, smax_nee = _nee(scene, pos, ez, omega_out, ex, ey, ez,
+                                   bsdf, un[0], un[1], un[2], shade_mask)
+    sm = shade_mask[..., None]
+    new_nee_dir = torch.where(sm, wl_nee, state.nee_dir)
+    new_nee_contrib = torch.where(sm, throughput * nee_c, state.nee_contrib)
+    new_nee_maxt = torch.where(shade_mask, smax_nee, keep_maxt)
+
+    # --- closure sampling (3 draws + 1 kept for the stream layout) ---
+    rng_state, ub = prng.draw_n(rng_state, 4)
+    omega_in, f, pdf_b, pick_sss_raw = principled.sample_surface(
+        omega_out, bsdf, ub[0], ub[1], ub[2])
+    # SSS entry only from front faces (random-walk-sss.h:236-239)
+    pick_sss = pick_sss_raw & s_shade & (face_dir == FRONT)
+    sss_die = pick_sss_raw & s_shade & (face_dir != FRONT)
+
+    factor = f * (torch.abs(omega_in[..., 2])
+                  / torch.clamp(pdf_b, min=1e-12))[..., None]
+    bad = ((pdf_b <= 0.0) | ~torch.isfinite(factor).all(-1)
+           | ~torch.isfinite(pdf_b))
+    cont_surface = shade_mask & ~pick_sss & ~bad
+    new_dir_g = to_global(omega_in, ex, ey, ez)
+
+    # SSS entry reuses the closure-sample draws for the entry cosine sample
+    entry_g = to_global(-cosine_sample_hemisphere(ub[1], ub[2]), ex, ey, ez)
+    entry_ok = pick_sss & (vdot(-ng, entry_g) > 0.0)
+    sigma_t, sigma_s, sss_tp0 = scattering_coefficients(
+        bsdf.subsurface_weight, bsdf.subsurface_albedo, bsdf.subsurface_radius)
+
+    # ======================= state merge ================================
+    new_alive = torch.where(surface_mode, cont_surface | entry_ok,
+                            torch.where(v_scatter, v_alive & ~v_rr_die,
+                                        cont_surface))
+    new_alive = new_alive & alive & ~s_dead_amb & ~v_dead_exit & ~sss_die
+    new_mode = torch.where(entry_ok | (v_scatter & ~v_rr_die), MODE_VOLUME,
+                           MODE_SURFACE).to(torch.int32)
+    new_throughput = torch.where(cont_surface[..., None],
+                                 throughput * factor, throughput)
+    new_org = torch.where(
+        (shade_mask | entry_ok)[..., None], pos,
+        torch.where(v_scatter[..., None],
+                    state.org + t_eff[..., None] * direction, state.org))
+    new_direction = torch.where(cont_surface[..., None], new_dir_g,
+                                torch.where(entry_ok[..., None], entry_g,
+                                            direction))
+    new_min_t = torch.where(cont_surface | entry_ok, 1e-3,
+                            torch.where(v_scatter, 0.0, min_t))
+    # throughput black -> dead (render.cc:31)
+    new_alive = new_alive & (torch.abs(new_throughput).sum(-1) > F32_EPS)
+    e3 = entry_ok[..., None]
+
+    new_state = PathState(
+        org=new_org, direction=new_direction, min_t=new_min_t,
+        throughput=new_throughput, contribution=contribution,
+        bsdf_pdf=torch.where(cont_surface, pdf_b, state.bsdf_pdf),
+        rng=rng_state, alive=new_alive, first=state.first & ~shade_mask,
+        mode=new_mode,
+        vol_first=entry_ok | (state.vol_first & ~volume_mode),
+        sss_sigma_t=torch.where(e3, sigma_t, state.sss_sigma_t),
+        sss_sigma_s=torch.where(e3, sigma_s, state.sss_sigma_s),
+        sss_tp=torch.where(e3, sss_tp0,
+                           torch.where(volume_mode[..., None], sss_tp,
+                                       state.sss_tp)),
+        sss_instance=torch.where(entry_ok, hit_instance, state.sss_instance),
+        lane=state.lane, sample=state.sample, depth=state.depth,
+        nee_dir=new_nee_dir, nee_contrib=new_nee_contrib,
+        nee_maxt=new_nee_maxt)
+    if freeze_surface:
+        # surface lanes (incl. their RNG stream) pass through untouched;
+        # lanes that left volume mode in this substep keep their new state
+        new_state = PathState(*[
+            torch.where(surface_mode.reshape(
+                surface_mode.shape + (1,) * (new.ndim - 1)), old, new)
+            for old, new in zip(state, new_state)])
+    return new_state
+
+
+def init_state(scene, width: int, height: int, sample_id, seed,
+               lane) -> PathState:
+    """Fresh camera paths for pixel ids `lane` [N] int32."""
+    n = lane.shape[0]
+    dev = lane.device
+    rng_state = prng.seed_state(lane, sample_id, seed)
+    rng_state, (u1, u2) = prng.draw_n(rng_state, 2)
+    org, direction = generate_rays(scene, width, height, u1, u2, lane)
+    f3 = torch.zeros((n, 3), device=dev)
+    i32 = torch.int32
+    return PathState(
+        org=org, direction=direction, min_t=torch.zeros((n,), device=dev),
+        throughput=torch.ones((n, 3), device=dev), contribution=f3,
+        bsdf_pdf=torch.zeros((n,), device=dev), rng=rng_state,
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        first=torch.ones((n,), dtype=torch.bool, device=dev),
+        mode=torch.zeros((n,), dtype=i32, device=dev),
+        vol_first=torch.zeros((n,), dtype=torch.bool, device=dev),
+        sss_sigma_t=torch.ones((n, 3), device=dev),
+        sss_sigma_s=torch.ones((n, 3), device=dev),
+        sss_tp=torch.ones((n, 3), device=dev),
+        sss_instance=torch.full((n,), -1, dtype=i32, device=dev),
+        lane=torch.arange(n, dtype=i32, device=dev),
+        sample=torch.zeros((n,), dtype=i32, device=dev),
+        depth=torch.zeros((n,), dtype=i32, device=dev),
+        nee_dir=f3, nee_contrib=f3,
+        nee_maxt=torch.full((n,), -1.0, device=dev))
+
+
+@torch.no_grad()
+def render_lanes_wavefront(scene, width: int, height: int, spp: int,
+                           seed=0, max_steps: int = 32, k_volume: int = 0,
+                           n_lanes: int = 65536, vol_window: int | None = None,
+                           flush_every: int = 4, return_iters: bool = False):
+    """Full-occupancy forward render: persistent lanes + a pixel work queue
+    (the reference's atomic tile queue, render.cc:203-222). Returns the
+    summed radiance [width*height, 3] (divide by spp for the mean), and
+    with return_iters the number of sub-iterations run.
+
+    A lane that finishes its pixel's last sample claims the next unclaimed
+    pixel (rank among same-iteration claimants via a cumsum). A pixel's
+    samples run on one lane in order, each sample's RNG stream is a pure
+    function of (pixel, sample, seed), so the image does not depend on the
+    claim schedule or on the compaction permutation.
+
+    Each sub-iteration: refill, one full `wavefront_step`, the compaction
+    sort, then k_volume volume-only substeps. They run on the leading
+    `vol_window` rows (alive volume lanes sort first) when the walkers fit,
+    and on every lane otherwise; vol_window=None takes 3/8 of the lanes,
+    vol_window >= n_lanes runs them on every lane before the sort. Per lane
+    the window changes nothing, only the work done. Finished pixels park
+    their sum in a pend slot that is scattered into the framebuffer once
+    every flush_every sub-iterations.
+    """
+    if "mat_fat" not in scene:
+        scene = build_fat_tables(scene)
+    dev = scene["tri_v0"].device
+    n = width * height
+    n_lanes = max(1, min(n, n_lanes))
+    if vol_window is None:
+        vol_window = max(1, n_lanes * 3 // 8)
+    vol_window = max(1, min(vol_window, n_lanes))
+    window_ok = k_volume > 0 and vol_window < n_lanes
+    flush_every = max(1, min(flush_every, spp))
+    i32 = torch.int32
+
+    state = init_state(scene, width, height, 0, seed,
+                       torch.arange(n_lanes, dtype=i32, device=dev))
+    # state.lane = currently claimed pixel; state.sample = sample index
+    # within it; sample == spp marks a retired lane.
+    PC = _PACK_COLS  # + pix_acc 3 | pend_rgb 3 | pend_pix 1
+
+    def pack_ext(state, pix_acc, pend_rgb, pend_pix):
+        return torch.cat([pack_state(state), pix_acc, pend_rgb,
+                          pend_pix.to(torch.float32)[:, None]], dim=1)
+
+    def refill(state, pix_acc, pend_rgb, pend_pix, next_pixel):
+        """Flush finished samples into pix_acc; advance the sample or claim
+        a new pixel; park completed pixels in the pend slot."""
+        # a dead lane with an unresolved deferred-NEE query keeps its slot
+        # for one more step (the trace resolves it, then it flushes here)
+        flush = (~state.alive & (state.sample < spp)
+                 & (state.nee_maxt < 0.0))
+        pix_acc = pix_acc + torch.where(
+            flush[..., None] & torch.isfinite(state.contribution),
+            state.contribution, 0.0)
+        contribution = torch.where(flush[..., None], 0.0, state.contribution)
+        sn = state.sample + 1
+        adv = flush & (sn < spp)  # next sample of the same pixel
+        want = flush & (sn >= spp)  # pixel finished: claim the next one
+        pend_rgb = torch.where(want[..., None], pix_acc, pend_rgb)
+        pend_pix = torch.where(want, state.lane, pend_pix)
+        pix_acc = torch.where(want[..., None], 0.0, pix_acc)
+        newp = next_pixel + torch.cumsum(want.to(i32), 0).to(i32) - 1
+        got = want & (newp < n)
+        p_loc = torch.where(got, newp, state.lane)
+        s2 = torch.where(adv, sn, torch.where(
+            got, 0, torch.where(want, spp, state.sample))).to(i32)
+        need = adv | got
+        next_pixel = torch.clamp(next_pixel + want.sum(), max=n).to(i32)
+
+        rng0 = prng.seed_state(p_loc, s2 % spp, seed)
+        rng0, (u1, u2) = prng.draw_n(rng0, 2)
+        org0, dir0 = generate_rays(scene, width, height, u1, u2, p_loc)
+        nd = need[..., None]
+        state = state._replace(
+            org=torch.where(nd, org0, state.org),
+            direction=torch.where(nd, dir0, state.direction),
+            min_t=torch.where(need, 0.0, state.min_t),
+            throughput=torch.where(nd, 1.0, state.throughput),
+            bsdf_pdf=torch.where(need, 0.0, state.bsdf_pdf),
+            rng=torch.where(need, rng0, state.rng),
+            alive=state.alive | need,
+            first=state.first | need,
+            mode=torch.where(need, MODE_SURFACE, state.mode).to(i32),
+            vol_first=state.vol_first & ~need,
+            lane=p_loc, sample=s2,
+            depth=torch.where(need, 0, state.depth).to(i32),
+            contribution=contribution)
+        return state, pix_acc, pend_rgb, pend_pix, next_pixel
+
+    def vol_substeps(st):
+        for i in range(k_volume):
+            st = wavefront_step(scene, st, freeze_surface=True,
+                                resolve_pending=(i == 0))
+        return st
+
+    def vol_substeps_packed(p):
+        st = vol_substeps(unpack_state(p[:, :PC]))
+        return torch.cat([pack_state(st), p[:, PC:]], dim=1)
+
+    # generous iteration cap (a pixel costs <= spp * max_steps *
+    # (1 + k_volume) iterations on one lane; claims overlap lanes)
+    cap = (spp * max_steps * (1 + k_volume)
+           * ((n + n_lanes - 1) // n_lanes + 2))
+    fb = torch.zeros((n, 3), device=dev)
+    zeros3 = torch.zeros((n_lanes, 3), device=dev)
+    packed = pack_ext(state, zeros3, zeros3,
+                      torch.full((n_lanes,), -1, dtype=i32, device=dev))
+    next_pixel = torch.tensor(n_lanes, dtype=i32, device=dev)
+    it = 0
+    # loop test: a host sync per trip
+    while it < cap and bool(((packed[:, 15] > 0.5)
+                             | (packed[:, 30] < spp)).any()):
+        for _ in range(flush_every):
+            state = unpack_state(packed)
+            state, pix_acc, pend_rgb, pend_pix, next_pixel = refill(
+                state, packed[:, PC:PC + 3], packed[:, PC + 3:PC + 6],
+                packed[:, PC + 6].to(i32), next_pixel)
+            stepped = state.alive
+            state = wavefront_step(scene, state)
+            if k_volume and not window_ok and bool(
+                    (state.alive & (state.mode == MODE_VOLUME)).any()):
+                state = vol_substeps(state)
+            # per-sample step budget; with the window the kill waits until
+            # after the substeps, so a max-depth walker still gets them
+            depth = torch.where(stepped, state.depth + 1, state.depth)
+            state = state._replace(
+                depth=depth,
+                alive=(state.alive if window_ok
+                       else state.alive & (depth < max_steps)))
+            packed = compact_packed(
+                pack_ext(state, pix_acc, pend_rgb, pend_pix), scene)
+            if window_ok:
+                # alive volume lanes occupy rows [0, nv) after the sort
+                nv = int(((packed[:, 15] > 0.5)
+                          & (packed[:, 17] > 0.5)).sum())  # host sync
+                if nv <= vol_window:
+                    packed = torch.cat([
+                        vol_substeps_packed(packed[:vol_window]),
+                        packed[vol_window:]])
+                else:
+                    packed = vol_substeps_packed(packed)
+                packed[:, 15] = torch.where(packed[:, 31] >= max_steps, 0.0,
+                                            packed[:, 15])
+        # amortized framebuffer flush: drain every pend slot once per trip
+        # (a pixel is in at most one slot; empty slots add 0 to pixel 0)
+        pend_pix = packed[:, PC + 6].to(torch.int64)
+        fb.index_add_(0, torch.clamp(pend_pix, 0, n - 1), torch.where(
+            (pend_pix >= 0)[:, None], packed[:, PC + 3:PC + 6], 0.0))
+        packed = torch.cat([
+            packed[:, :PC + 3], zeros3,
+            torch.full((n_lanes, 1), -1.0, device=dev)], dim=1)
+        it += flush_every
+
+    # safety flush for a cap exit: the current pixel's finished samples
+    # plus the in-flight sample's contribution
+    state = unpack_state(packed)
+    contrib = torch.where(
+        ((state.sample < spp) & ~state.alive)[..., None]
+        & torch.isfinite(state.contribution), state.contribution, 0.0)
+    fb.index_add_(0, torch.clamp(state.lane, max=n - 1).to(torch.int64),
+                  packed[:, PC:PC + 3] + contrib)
+    return (fb, it) if return_iters else fb
+
+
+def render(scene, width: int, height: int, spp: int, seed=0,
+           max_steps: int = 32, k_volume: int = 0, **kwargs):
+    """spp-sample mean radiance [H, W, 3] via the persistent-lane
+    wavefront; kwargs go to `render_lanes_wavefront`."""
+    total = render_lanes_wavefront(scene, width, height, spp, seed,
+                                   max_steps, k_volume=k_volume, **kwargs)
+    return total.reshape(height, width, 3) / spp

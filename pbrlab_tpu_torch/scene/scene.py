@@ -1,0 +1,273 @@
+"""Scene assembly: host-side builder -> flat scene dict -> device tensors
+(port of pbrlab_tpu.scene.scene; reference scene.{h,cc}, light-manager.cc).
+
+`SceneBuilder.build` and `commit` are numpy, as in the JAX package, and
+produce the same arrays for the tables this slice reads: every triangle
+baked to world space, per-face columns in SAH slot order, the flattened
+light CDF, the dense_v4 trace tables and the compaction signature boxes.
+`scene_from_numpy` moves a committed scene (from either package) to torch
+tensors on a device; `build_fat_tables` packs the per-lane fat rows there.
+
+Not in this slice: hair curves, textures, shared instancing, and the
+tables of the dense_v5l/v5s, legacy dense v1-v3 and threaded-BVH trace
+backends (ROADMAP A10-A13).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..geometry.mesh import TriangleMesh
+from ..ops.build import build_v5
+from .materials import MaterialBuilder, pack_material_fat
+
+# per-face columns that commit reorders into slot order
+_FACE_COLUMNS = ("tri_v0", "tri_e1", "tri_e2", "face_ng", "face_area",
+                 "face_ns", "face_has_ns", "face_uv", "face_has_uv",
+                 "face_material", "face_light", "face_instance",
+                 "face_geom", "face_emission", "face_light_pdf")
+
+
+def _apply_transform(verts: np.ndarray, m: Optional[np.ndarray]) -> np.ndarray:
+    if m is None:
+        return verts
+    m = np.asarray(m, np.float32)
+    return verts @ m[:3, :3].T + m[:3, 3]
+
+
+def _apply_normal_transform(normals: np.ndarray, m: Optional[np.ndarray]):
+    if m is None:
+        return normals
+    m = np.asarray(m, np.float32)
+    nm = np.linalg.inv(m[:3, :3]).T
+    n = normals @ nm.T
+    return n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-30)
+
+
+@dataclasses.dataclass
+class _Instance:
+    meshes: List[TriangleMesh]
+    light_ids: List[Optional[np.ndarray]]  # per mesh: per-face light param id or None
+    transform: Optional[np.ndarray]
+
+
+class SceneBuilder:
+    """Accumulates meshes/materials/lights, then `build()`s numpy arrays
+    (reference Scene API, scene.h:14-111). A local scene is the list of
+    meshes passed to `add_instance`, with an optional 4x4 transform."""
+
+    def __init__(self):
+        self.materials = MaterialBuilder()
+        self._instances: List[_Instance] = []
+        self._light_params: List[np.ndarray] = []  # emission rgb per light param
+
+    def add_area_light_param(self, emission) -> int:
+        self._light_params.append(np.asarray(emission, np.float32))
+        return len(self._light_params) - 1
+
+    def add_instance(self, meshes: List[TriangleMesh],
+                     light_ids: Optional[List[Optional[np.ndarray]]] = None,
+                     transform: Optional[np.ndarray] = None) -> int:
+        if light_ids is None:
+            light_ids = [None] * len(meshes)
+        self._instances.append(_Instance(meshes, light_ids, transform))
+        return len(self._instances) - 1
+
+    def build(self) -> Dict[str, np.ndarray]:
+        tri_v, tri_ns, tri_has_ns, tri_uv, tri_has_uv = [], [], [], [], []
+        tri_mat, tri_light, tri_inst, tri_geom = [], [], [], []
+
+        for inst_id, inst in enumerate(self._instances):
+            for geom_id, mesh in enumerate(inst.meshes):
+                f = mesh.faces
+                nf = f.shape[0]
+                tri_v.append(_apply_transform(mesh.vertices, inst.transform)[f])
+                if mesh.normals is not None and mesh.normal_idx is not None:
+                    ns = _apply_normal_transform(mesh.normals, inst.transform)
+                    tri_ns.append(ns[np.maximum(mesh.normal_idx, 0)])
+                    tri_has_ns.append(np.all(mesh.normal_idx >= 0, axis=-1))
+                else:
+                    tri_ns.append(np.zeros((nf, 3, 3), np.float32))
+                    tri_has_ns.append(np.zeros((nf,), bool))
+                if mesh.texcoords is not None and mesh.texcoord_idx is not None:
+                    tri_uv.append(mesh.texcoords[np.maximum(mesh.texcoord_idx, 0)])
+                    tri_has_uv.append(np.all(mesh.texcoord_idx >= 0, axis=-1))
+                else:
+                    tri_uv.append(np.zeros((nf, 3, 2), np.float32))
+                    tri_has_uv.append(np.zeros((nf,), bool))
+                tri_mat.append(mesh.material_ids)
+                lids = inst.light_ids[geom_id]
+                tri_light.append(np.full((nf,), -1, np.int32) if lids is None
+                                 else np.asarray(lids, np.int32))
+                tri_inst.append(np.full((nf,), inst_id, np.int32))
+                tri_geom.append(np.full((nf,), geom_id, np.int32))
+
+        def cat(parts, shape, dtype):
+            return (np.concatenate(parts).astype(dtype) if parts
+                    else np.zeros(shape, dtype))
+
+        V = cat(tri_v, (0, 3, 3), np.float32)  # [F,3,3]
+        scene: Dict[str, np.ndarray] = {}
+        scene["tri_v0"] = V[:, 0]
+        scene["tri_e1"] = V[:, 1] - V[:, 0]
+        scene["tri_e2"] = V[:, 2] - V[:, 0]
+        ng = np.cross(scene["tri_e1"], scene["tri_e2"])
+        area2 = np.linalg.norm(ng, axis=-1)
+        scene["face_ng"] = (
+            ng / np.maximum(area2, 1e-30)[:, None]).astype(np.float32)
+        scene["face_area"] = (0.5 * area2).astype(np.float32)
+        scene["face_ns"] = cat(tri_ns, (0, 3, 3), np.float32)
+        scene["face_has_ns"] = cat(tri_has_ns, (0,), bool)
+        scene["face_uv"] = cat(tri_uv, (0, 3, 2), np.float32)
+        scene["face_has_uv"] = cat(tri_has_uv, (0,), bool)
+        scene["face_material"] = cat(tri_mat, (0,), np.int32)
+        face_light = cat(tri_light, (0,), np.int32)
+        scene["face_light"] = face_light
+        scene["face_instance"] = cat(tri_inst, (0,), np.int32)
+        scene["face_geom"] = cat(tri_geom, (0,), np.int32)
+
+        # lights: one CDF over emissive faces, p(face) = p(light) p(prim|light)
+        light_emission = (np.stack(self._light_params) if self._light_params
+                          else np.zeros((0, 3), np.float32))
+        emissive = np.nonzero(face_light >= 0)[0].astype(np.int32)
+        F = face_light.shape[0]
+        face_emission = np.zeros((F, 3), np.float32)
+        face_light_pdf = np.zeros((F,), np.float32)
+        if emissive.size:
+            em = light_emission[face_light[emissive]]
+            face_emission[emissive] = em
+            # power = SpectrumNorm(emission) * area (light-manager.cc:118-140)
+            power = em.max(axis=-1) * scene["face_area"][emissive]
+            p_choose = power / max(power.sum(), 1e-30)
+            face_light_pdf[emissive] = p_choose / np.maximum(
+                scene["face_area"][emissive], 1e-30)
+            cdf = np.cumsum(p_choose).astype(np.float32)
+        else:
+            cdf = np.zeros((0,), np.float32)
+        scene["face_emission"] = face_emission
+        scene["face_light_pdf"] = face_light_pdf
+        scene["emissive_faces"] = emissive
+        scene["light_cdf"] = cdf
+        scene["light_emission"] = light_emission
+
+        scene["materials"] = self.materials.build()
+
+        # scene AABB (reference Scene::FetchSceneAABB)
+        allp = V.reshape(-1, 3) if V.size else np.zeros((1, 3), np.float32)
+        scene["aabb_min"] = allp.min(axis=0).astype(np.float32)
+        scene["aabb_max"] = allp.max(axis=0).astype(np.float32)
+        return scene
+
+
+def _signature_cut(node_aabb: np.ndarray, node_meta: np.ndarray,
+                   max_nodes: int = 29) -> np.ndarray:
+    """BFS cut of the trace BVH: <= max_nodes subtree AABBs [6, K], the
+    boxes of the integrator's one-word compaction signature. Padding
+    columns are empty boxes (lo=+inf) that never set a bit."""
+    right = node_meta[0]
+    cut = [0]  # expand the largest-surface node first until the cut is full
+    while True:
+        areas = []
+        for n in cut:
+            if right[n] < 0:
+                areas.append(-1.0)  # leaf: cannot expand
+            else:
+                d = np.maximum(node_aabb[3:6, n] - node_aabb[0:3, n], 0.0)
+                areas.append(float(d[0] * d[1] + d[1] * d[2] + d[2] * d[0]))
+        j = int(np.argmax(areas))
+        if areas[j] < 0.0 or len(cut) + 1 > max_nodes:
+            break
+        n = cut.pop(j)
+        cut = [n + 1, int(right[n])] + cut
+    out = np.full((6, max_nodes), np.inf, np.float32)
+    out[3:6, :] = -np.inf
+    for i, n in enumerate(sorted(cut)):
+        out[:, i] = node_aabb[:, n]
+    return out
+
+
+def commit(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Build the trace tables (reference Scene::CommitScene, scene.cc:96-104).
+
+    The SAH slot layout is the canonical face order: every per-face column
+    is scattered into the padded slot array (S = M * CLUSTER slots, padding
+    rows zero), so the trace kernels' slot ids ARE face ids.
+    """
+    scene = dict(scene)
+    packed4, cluster_aabb4, order, node_aabb5, node_meta5 = build_v5(
+        scene["tri_v0"], scene["tri_e1"], scene["tri_e2"])
+    F = scene["tri_v0"].shape[0]
+    S = order.shape[0]
+    if F:
+        valid = order >= 0
+        src = np.maximum(order, 0)
+        for key in _FACE_COLUMNS:
+            col = scene[key][src]
+            scene[key] = np.where(
+                valid.reshape((S,) + (1,) * (col.ndim - 1)), col,
+                np.zeros_like(col))
+        inv = np.full((F,), -1, np.int32)
+        inv[order[valid]] = np.nonzero(valid)[0].astype(np.int32)
+        if scene["emissive_faces"].size:
+            scene["emissive_faces"] = inv[scene["emissive_faces"]]
+    scene["dense_tris_v4"] = packed4
+    scene["dense_cluster_aabb_v4"] = cluster_aabb4
+    scene["v5_node_aabb"] = node_aabb5
+    scene["v5_node_meta"] = node_meta5
+    scene["sig_aabb"] = _signature_cut(node_aabb5, node_meta5, max_nodes=29)
+    return scene
+
+
+def scene_from_numpy(scene_np: Dict, device) -> Dict:
+    """Committed numpy scene dict (from this package's `commit` or the JAX
+    package's) -> dict of torch tensors on `device`, recursing into
+    `materials` (the counterpart of pbrlab_tpu's scene_to_device)."""
+    out = {}
+    for key, val in scene_np.items():
+        if isinstance(val, dict):
+            out[key] = scene_from_numpy(val, device)
+        else:
+            out[key] = torch.from_numpy(np.array(val)).to(device)
+    return out
+
+
+def build_fat_tables(scene: Dict) -> Dict:
+    """Pack per-face / material / emissive-face data into fat row matrices
+    on the scene's device, so a lane fetches each with one row gather.
+
+    face_fat [F, 26]: 0:3 ng | 3:12 corner ns | 12:18 corner uv | 18 has_ns
+      | 19 has_uv | 20 mat_id | 21 light_pdf | 22:25 emission | 25 instance
+    light_fat [LF, 16]: v0 e1 e2 ng emission pdf
+    mat_fat [M, K]: see materials.fat_layout().
+    """
+    if "iface_material" in scene:
+        raise NotImplementedError(
+            "shared instancing is not ported yet (ROADMAP A13)")
+    atlas = scene.get("texture_atlas")
+    if atlas is not None and tuple(atlas.shape[:3]) != (1, 1, 1):
+        raise NotImplementedError("textures are not ported yet (ROADMAP A12)")
+    scene = dict(scene)
+    F = scene["tri_v0"].shape[0]
+    f32 = torch.float32
+    scene["face_fat"] = torch.cat([
+        scene["face_ng"],
+        scene["face_ns"].reshape(F, 9),
+        scene["face_uv"].reshape(F, 6),
+        scene["face_has_ns"].to(f32)[:, None],
+        scene["face_has_uv"].to(f32)[:, None],
+        scene["face_material"].to(f32)[:, None],
+        scene["face_light_pdf"][:, None],
+        scene["face_emission"],
+        scene["face_instance"].to(f32)[:, None],
+    ], dim=1)
+    lf = scene["emissive_faces"].to(torch.int64)
+    scene["light_fat"] = torch.cat([
+        scene["tri_v0"][lf], scene["tri_e1"][lf], scene["tri_e2"][lf],
+        scene["face_ng"][lf], scene["face_emission"][lf],
+        scene["face_light_pdf"][lf][:, None],
+    ], dim=1)
+    scene["mat_fat"] = pack_material_fat(scene["materials"])
+    return scene

@@ -1,0 +1,166 @@
+"""The port's integrator against the JAX package.
+
+(a) One `wavefront_step` from the same state: the state comes from the JAX
+    package's own first steps, then both packages advance it once, JAX
+    forced to the dense_v4 kernels in interpret mode (the port's only
+    backend). Same float32 math, same trace: every bool and int field must
+    be equal; floats within rtol 1e-5 on 99.5% of values and rtol 1e-2 on
+    all (XLA:CPU and torch may round a sum or a transcendental differently
+    by an ulp, which the GGX sample of a few ill-conditioned lanes grows;
+    see test_torch_shading.py). bsdf_pdf takes the 99.5% band only: on the
+    glossy body (roughness 0.01, alpha 1e-4) it is a near-delta density
+    that moves ~1/alpha times an ulp change of the sampled direction.
+(b) The whole `render` against tests/goldens/cpu_goldens.npz, JAX CPU
+    renders through its threaded-BVH backend at the same n_lanes. A
+    different intersection algorithm moves hit points by ulps, which a
+    path can amplify: >= 99% of values within rtol 1e-3/atol 1e-4 and the
+    image mean within 1e-3 relative.
+(c) The volume-substep window is a speed choice only: window 1 (nearly
+    always the overflow branch), the default and window off give equal
+    images.
+(d) Two renders give the same bits.
+"""
+from functools import partial
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pbrlab_tpu.render import integrator as jint
+from pbrlab_tpu.scene.demo import build_demo_scene as jbuild_demo_scene
+from pbrlab_tpu.scene.scene import build_fat_tables as jbuild_fat_tables
+from pbrlab_tpu.scene.scene import scene_to_device
+from pbrlab_tpu_torch.render import integrator as tint
+from pbrlab_tpu_torch.scene.demo import build_demo_scene
+from pbrlab_tpu_torch.scene.scene import build_fat_tables, scene_from_numpy
+
+GOLDEN_PATH = "tests/goldens/cpu_goldens.npz"
+GOLDEN_SCENES = {  # tests/test_goldens.py:25-41
+    "lambert": (dict(subdiv=1, lambert_only=True), 0),
+    "ggx": (dict(subdiv=1, with_lucy=False), 0),
+    "sss": (dict(subdiv=1, with_monkey=False), 2),
+}
+W = H = 16
+SPP = 4
+SEED = 7
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    """The demo scene (glossy + SSS bodies): the JAX package's commit,
+    handed to both packages."""
+    scene_np, _ = jbuild_demo_scene(subdiv=1)
+    return (jbuild_fat_tables(scene_to_device(scene_np)),
+            build_fat_tables(scene_from_numpy(scene_np, "cpu")))
+
+
+@pytest.fixture()
+def jax_dense4(monkeypatch):
+    """Force the JAX package onto dense_v4, interpreted on the CPU
+    (`_closest_tri` / `_occluded_tri` import the wrapper at call time)."""
+    from pbrlab_tpu.ops.pallas import dense_v4 as jv4
+
+    monkeypatch.setenv("PBRLAB_TRACE_BACKEND", "dense4")
+    monkeypatch.setattr(jv4, "dense_trace_v4",
+                        partial(jv4.dense_trace_v4, interpret=True))
+
+
+def _to_torch(state):
+    fields = []
+    for x in state:
+        a = np.asarray(x)
+        if a.dtype == np.uint32:  # the rng word rides in int64
+            a = a.astype(np.int64)
+        fields.append(torch.from_numpy(a.copy()))
+    return tint.PathState(*fields)
+
+
+def _assert_state_close(got, want):
+    for name, g, w in zip(want._fields, got, want):
+        w = np.asarray(w)
+        g = g.numpy()
+        if w.dtype == np.uint32:
+            np.testing.assert_array_equal(g.astype(np.uint32), w,
+                                          err_msg=name)
+        elif w.dtype.kind in "biu":
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            assert np.isclose(g, w, rtol=1e-5, atol=1e-6).mean() >= 0.995, name
+            if name != "bsdf_pdf":
+                np.testing.assert_allclose(g, w, rtol=1e-2, atol=1e-5,
+                                           err_msg=name)
+
+
+def _jax_state_after(scene_j, steps):
+    """JAX init (32x32 camera lanes) + `steps` full steps."""
+    state = jint.init_state(scene_j, 32, 32, jnp.uint32(0), 3)
+    for _ in range(steps):
+        state = jint.wavefront_step(scene_j, state, 0)
+    return state
+
+
+@pytest.mark.parametrize("steps", [0, 2])
+def test_full_step_matches_jax(scenes, jax_dense4, steps):
+    """A full step: dual trace (closest + pending shadow queries)."""
+    scene_j, scene_t = scenes
+    state = _jax_state_after(scene_j, steps)
+    if steps:
+        assert (np.asarray(state.nee_maxt) >= 0).any()
+    want = jint.wavefront_step(scene_j, state, 0)
+    got = tint.wavefront_step(scene_t, _to_torch(state))
+    _assert_state_close(got, want)
+
+
+@pytest.mark.parametrize("resolve_pending", [True, False],
+                         ids=["first-substep-dual", "later-substep-single"])
+def test_volume_substep_matches_jax(scenes, jax_dense4, resolve_pending):
+    """A windowed volume substep: the first resolves the walkers' pending
+    NEE (dual trace), later ones trace closest only."""
+    scene_j, scene_t = scenes
+    state = _jax_state_after(scene_j, 2)
+    walking = np.asarray(state.alive & (state.mode == jint.MODE_VOLUME))
+    assert walking.sum() > 10
+    want = jint.wavefront_step(scene_j, state, 0, freeze_surface=True,
+                               resolve_pending=resolve_pending,
+                               windowed=True)
+    got = tint.wavefront_step(scene_t, _to_torch(state), freeze_surface=True,
+                              resolve_pending=resolve_pending)
+    _assert_state_close(got, want)
+
+
+def _render_port(name, **kw):
+    scene_kw, k_volume = GOLDEN_SCENES[name]
+    scene = scene_from_numpy(build_demo_scene(**scene_kw)[0], "cpu")
+    img = tint.render(scene, W, H, SPP, seed=SEED, max_steps=6,
+                      k_volume=k_volume, **kw)
+    return img.numpy()
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_SCENES))
+def test_render_matches_goldens(name):
+    img = _render_port(name)
+    golden = np.load(GOLDEN_PATH)[name]
+    assert img.shape == golden.shape == (H, W, 3)
+    assert np.isfinite(img).all() and (img >= 0).all()
+    assert np.isclose(img, golden, rtol=1e-3, atol=1e-4).mean() >= 0.99
+    assert abs(img.mean() - golden.mean()) <= 1e-3 * golden.mean()
+
+
+def test_volume_window_changes_no_pixel():
+    """Window 1 overflows into the every-lane branch on nearly every
+    sub-iteration; the default window fits; window off (= n_lanes) runs
+    the substeps before the sort."""
+    imgs = [_render_port("sss", vol_window=vw) for vw in (1, None, W * H)]
+    np.testing.assert_array_equal(imgs[0], imgs[1])
+    np.testing.assert_array_equal(imgs[2], imgs[1])
+
+
+def test_render_is_deterministic():
+    a = _render_port("ggx", n_lanes=100, flush_every=2)
+    b = _render_port("ggx", n_lanes=100, flush_every=2)
+    np.testing.assert_array_equal(a, b)
+    # fewer lanes than pixels: the work queue reclaims lanes; the image
+    # stays within the golden band of the full-occupancy render
+    golden = np.load(GOLDEN_PATH)["ggx"]
+    assert np.isclose(a, golden, rtol=1e-3, atol=1e-4).mean() >= 0.99

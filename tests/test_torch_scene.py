@@ -1,0 +1,116 @@
+"""Scene build and commit of the port against the JAX package.
+
+Both sides are numpy up to `scene_from_numpy`, so every table the slice
+reads must be equal exactly; so must the fat rows packed on the device.
+"""
+import numpy as np
+import pytest
+import torch
+
+from pbrlab_tpu.scene import demo as jdemo
+from pbrlab_tpu.scene.scene import build_fat_tables as jbuild_fat_tables
+from pbrlab_tpu.scene.scene import scene_to_device
+from pbrlab_tpu_torch.ops.build import build_v5, pack_triangles_sah
+from pbrlab_tpu_torch.scene import demo as tdemo
+from pbrlab_tpu_torch.scene.scene import build_fat_tables, scene_from_numpy
+
+SLICE_KEYS = ("tri_v0", "tri_e1", "tri_e2", "face_ng", "face_area",
+              "face_ns", "face_has_ns", "face_uv", "face_has_uv",
+              "face_material", "face_light", "face_instance", "face_geom",
+              "face_emission", "face_light_pdf", "emissive_faces",
+              "light_cdf", "light_emission", "aabb_min", "aabb_max",
+              "dense_tris_v4", "dense_cluster_aabb_v4", "v5_node_aabb",
+              "v5_node_meta", "sig_aabb")
+
+
+@pytest.mark.parametrize("kw", [dict(subdiv=1), dict(subdiv=3),
+                                dict(subdiv=1, lambert_only=True,
+                                     irregular=True)],
+                         ids=["subdiv1", "subdiv3", "irregular"])
+def test_commit_matches_jax(kw):
+    want, _ = jdemo.build_demo_scene(**kw)
+    got, _ = tdemo.build_demo_scene(**kw)
+    for key in SLICE_KEYS:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    for key, col in want["materials"].items():
+        np.testing.assert_array_equal(got["materials"][key], col,
+                                      err_msg=key)
+    if kw["subdiv"] == 3:  # the bench scene's sizes
+        assert got["dense_tris_v4"].shape == (12, 3904)
+        assert got["dense_cluster_aabb_v4"].shape == (8, 122)
+        assert got["v5_node_aabb"].shape == (6, 243)
+        assert np.isfinite(got["sig_aabb"]).all()  # 29 real subtrees
+
+
+def test_pack_triangles_sah_matches_jax():
+    from pbrlab_tpu.ops.pallas.dense_v4 import pack_triangles_sah as jpack
+
+    scene, _ = tdemo.build_demo_scene(subdiv=2)
+    args = (scene["tri_v0"], scene["tri_e1"], scene["tri_e2"])
+    for got, want in zip(pack_triangles_sah(*args), jpack(*args)):
+        np.testing.assert_array_equal(got, want)
+    empty = np.zeros((0, 3), np.float32)
+    assert [a.shape for a in build_v5(empty, empty, empty)] == [
+        (12, 32), (8, 1), (32,), (6, 1), (2, 1)]
+
+
+def test_fat_tables_match_jax():
+    scene_np, _ = jdemo.build_demo_scene(subdiv=1)
+    want = jbuild_fat_tables(scene_to_device(scene_np))
+    got = build_fat_tables(scene_from_numpy(scene_np, "cpu"))
+    for key in ("face_fat", "light_fat", "mat_fat"):
+        np.testing.assert_array_equal(got[key].numpy(),
+                                      np.asarray(want[key]), err_msg=key)
+
+
+def test_lights_match_jax():
+    """Light sampling on the same fat tables and uniforms: the face pick
+    and the fetched rows are exact; the point p0 + u e1 + v e2 within rtol
+    1e-6 (XLA:CPU may contract a product and sum into one rounding)."""
+    import jax.numpy as jnp
+    from pbrlab_tpu.scene import lights as jlights
+    from pbrlab_tpu_torch.scene import lights as tlights
+
+    scene_np, _ = jdemo.build_demo_scene(subdiv=1)
+    jscene = jbuild_fat_tables(scene_to_device(scene_np))
+    tscene = build_fat_tables(scene_from_numpy(scene_np, "cpu"))
+    u = np.random.default_rng(11).random((3, 4096), dtype=np.float32)
+    want = jlights.sample_all_light(jscene, *map(jnp.asarray, u))
+    got = tlights.sample_all_light(tscene, *map(torch.from_numpy, u))
+    for name in ("normal", "emission", "pdf", "valid"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    np.testing.assert_allclose(got.position.numpy(),
+                               np.asarray(want.position), rtol=1e-6,
+                               atol=1e-7)
+    # random faces plus every emissive one, so both outcomes are covered
+    prim = np.concatenate([np.random.default_rng(12).integers(
+        0, scene_np["tri_v0"].shape[0], 512), scene_np["emissive_faces"]])
+    prim = prim.astype(np.int32)
+    got = tlights.implicit_area_light(tscene, torch.from_numpy(prim))
+    want = jlights.implicit_area_light(jscene, jnp.asarray(prim))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[0].any() and not got[0].all()
+
+
+def test_scene_from_numpy_keeps_dtypes():
+    scene_np, _ = tdemo.build_demo_scene(subdiv=1)
+    scene = scene_from_numpy(scene_np, "cpu")
+    assert scene["face_has_ns"].dtype == torch.bool
+    assert scene["face_material"].dtype == torch.int32
+    assert scene["materials"]["kind"].dtype == torch.int32
+    assert scene["tri_v0"].dtype == torch.float32
+    np.testing.assert_array_equal(scene["v5_node_meta"].numpy(),
+                                  scene_np["v5_node_meta"])
+
+
+def test_unported_features_raise():
+    with pytest.raises(NotImplementedError):
+        tdemo.build_demo_scene(subdiv=1, with_hair=True)
+    scene = scene_from_numpy(tdemo.build_demo_scene(subdiv=1)[0], "cpu")
+    scene["texture_atlas"] = torch.zeros((1, 2, 2, 3))
+    with pytest.raises(NotImplementedError):
+        build_fat_tables(scene)
