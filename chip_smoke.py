@@ -2,14 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the dense_v4 CUDA kernels from csrc/, checks each against its plain
-torch version at the main path's shapes on the bench scene (the cornellbox
-at subdiv=3), checks a small render on the card against the same render on
-the CPU, then renders the bench scene at 512x512, 8 spp, max_steps=12,
-k_volume=3 through the kernels and checks the image and the launch counts.
-Exits non-zero, printing no result, on any failure or without a CUDA card.
-The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+Builds the port's CUDA library (every csrc/*.cu) and drives its three
+render paths on one card:
+
+* cornellbox: `build_demo_scene(subdiv=3)`, dense_v4 (bench.py's headline
+  scene), 512x512, 8 spp;
+* mid: `build_demo_scene(subdiv=4)` (461 clusters), dense_v5 and its dual
+  kernel, 256x256, 8 spp;
+* large: `build_demo_scene(subdiv=5, irregular=True)` (40972 triangles,
+  bench.py's large line), the dense_v5s scheduler over dense_v5l,
+  512x512, 16 spp;
+
+all at max_steps=12, k_volume=3. Phase 3 checks each kernel against its
+plain torch version at its path's shapes and times both; phase 4 checks
+small renders on the card against the same renders on the CPU; phase 5
+renders each path with every launch counter set to 0 just before and read
+just after. Exits non-zero, printing no result, on any failure or without
+a CUDA card. The last lines are the kernels' JSON record, the card's name
+and power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -23,10 +33,20 @@ import numpy as np
 import torch
 
 SEED = 7
-MAIN = dict(width=512, height=512, spp=8, max_steps=12, k_volume=3)
+SETTINGS = dict(max_steps=12, k_volume=3)
+PATHS = {  # name: (build_demo_scene kwargs, width = height, spp)
+    "cornellbox": (dict(subdiv=3), 512, 8),
+    "mid": (dict(subdiv=4), 256, 8),
+    "large": (dict(subdiv=5, irregular=True), 512, 16),
+}
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
 N_SINGLE = 24576  # default volume window (3/8 of the lanes): substeps 2-3
 RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+OPS_TRI = 40  # f32 operations of one ray-triangle test (csrc/*.cu)
+OPS_BOX = 27  # f32 operations of one ray-box slab test
 
 
 def card_line():
@@ -36,9 +56,9 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=20):
-    """Median CUDA-event time of fn() in ms, after two warm-up calls."""
-    for _ in range(2):
+def cuda_ms(fn, reps=20, warmup=2):
+    """Median CUDA-event time of fn() in ms, after warm-up calls."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -50,6 +70,18 @@ def cuda_ms(fn, reps=20):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def bound(n_bytes, ops):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over the FP32 rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, ops / PEAK_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
 
 
 def check_hits(name, got, ref, occ=None, ref_occ=None):
@@ -67,170 +99,90 @@ def check_hits(name, got, ref, occ=None, ref_occ=None):
     bad = hit & same_t & (got["prim"] != ref["prim"])
     if bad.float().mean() > 1e-3:
         raise AssertionError(f"{name}: prim differs on {int(bad.sum())} lanes")
-    return float((got["t"][hit] - ref["t"][hit]).abs().max())
+    return float((got["t"][hit] - ref["t"][hit]).abs().max()) if hit.any() \
+        else 0.0
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+def path_rays(scene, dev, rng):
+    """The main path's trace inputs in the cornellbox frame: N_DUAL bounce
+    rays from interior points with shadow queries towards the light quad
+    (y = 1.98, |x|, |z| < 0.4; 30% ask none, 5% of the lanes dead), and
+    N_SINGLE lanes of half camera rays (256^2 image), half bounce rays.
+    Returns (dual rays: org, dir, min_t, max_t, sdir, smin_t, smax_t;
+    single rays: org, dir, min_t, max_t)."""
     from pbrlab_tpu_torch.core.math import EPS, INF
-    from pbrlab_tpu_torch.ops import dense_v4
     from pbrlab_tpu_torch.render.camera import generate_rays
-    from pbrlab_tpu_torch.render.integrator import render, render_lanes_wavefront
-    from pbrlab_tpu_torch.scene.demo import build_demo_scene
-    from pbrlab_tpu_torch.scene.scene import scene_from_numpy
-
-    dev = torch.device("cuda:0")
-    card = card_line()
-    # phase 1: card
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
-
-    # phase 2: build
-    t0 = time.perf_counter()
-    path, log = dense_v4.build_library()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
-
-    # phase 3: kernel parity and times at the main path's shapes
-    scene_np, _ = build_demo_scene(subdiv=3)
-    scene = scene_from_numpy(scene_np, dev)
-    tris = scene["dense_tris_v4"]
-    aabb = scene["dense_cluster_aabb_v4"]
-    print(f"bench scene: {tris.shape[1]} slots, {aabb.shape[1]} clusters")
-    rng = np.random.default_rng(SEED)
-
-    def unit(n):
-        d = rng.normal(size=(n, 3))
-        return d / np.linalg.norm(d, axis=1, keepdims=True)
 
     def t32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
-    # 65536 camera rays (256^2 pixels) and 65536 bounce rays from interior
-    # points; shadow rays aim at the light quad (y = 1.98, |x|, |z| < 0.4)
     lane = torch.arange(N_DUAL, dtype=torch.int32, device=dev)
     cam_org, cam_dir = generate_rays(scene, 256, 256, t32(rng.random(N_DUAL)),
                                      t32(rng.random(N_DUAL)), lane)
     b_org = rng.uniform([-0.95, 0.05, -0.95], [0.95, 1.95, 0.95],
                         size=(N_DUAL, 3))
-    b_dir = unit(N_DUAL)
+    b_dir = rng.normal(size=(N_DUAL, 3))
+    b_dir /= np.linalg.norm(b_dir, axis=1, keepdims=True)
     lpt = np.stack([rng.uniform(-0.4, 0.4, N_DUAL), np.full(N_DUAL, 1.98),
                     rng.uniform(-0.4, 0.4, N_DUAL)], axis=1)
     to_l = lpt - b_org
     dist = np.linalg.norm(to_l, axis=1)
     smax = np.where(rng.random(N_DUAL) < 0.3, -1.0, dist - EPS)
-    maxt = np.where(rng.random(N_DUAL) < 0.05, -1.0, INF)  # some dead lanes
-    dual_args = (tris, aabb, t32(b_org), t32(b_dir),
-                 torch.full((N_DUAL,), 1e-3, device=dev), t32(maxt),
-                 t32(to_l / dist[:, None]),
-                 torch.full((N_DUAL,), EPS, device=dev), t32(smax))
+    maxt = np.where(rng.random(N_DUAL) < 0.05, -1.0, INF)
+    dual = (t32(b_org), t32(b_dir), torch.full((N_DUAL,), 1e-3, device=dev),
+            t32(maxt), t32(to_l / dist[:, None]),
+            torch.full((N_DUAL,), EPS, device=dev), t32(smax))
     half = N_SINGLE // 2
-    s_org = torch.cat([cam_org[:half], t32(b_org[:half])]).contiguous()
-    s_dir = torch.cat([cam_dir[:half], t32(b_dir[:half])]).contiguous()
-    single_args = (tris, aabb, s_org, s_dir,
-                   torch.zeros((N_SINGLE,), device=dev),
-                   torch.full((N_SINGLE,), INF, device=dev))
+    single = (torch.cat([cam_org[:half], t32(b_org[:half])]).contiguous(),
+              torch.cat([cam_dir[:half], t32(b_dir[:half])]).contiguous(),
+              torch.zeros((N_SINGLE,), device=dev),
+              torch.full((N_SINGLE,), INF, device=dev))
+    return dual, single
 
+
+def v4_phase(dense_v4, scene, dual, single, card):
+    """dense_v4 kernels vs the plain walk on the cornellbox; times and the
+    bound of the tests the per-thread exit needs."""
+    tris = scene["dense_tris_v4"]
+    aabb = scene["dense_cluster_aabb_v4"]
+    dual_args = (tris, aabb, *dual)
+    single_args = (tris, aabb, *single)
     got, occ = dense_v4.dense_trace_v4_dual(*dual_args)
     ref, ref_occ = dense_v4.dense_trace_v4_dual_ref(*dual_args)
     torch.cuda.synchronize()
-    err_dual = check_hits("dual", got, ref, occ, ref_occ)
+    err = {"dual": check_hits("v4 dual", got, ref, occ, ref_occ)}
     got = dense_v4.dense_trace_v4(*single_args)
     ref = dense_v4.dense_trace_v4_ref(*single_args)
     torch.cuda.synchronize()
-    err_single = check_hits("single", got, ref)
+    err["single"] = check_hits("v4 single", got, ref)
     anyh = dense_v4.dense_trace_v4(*single_args, any_hit=True)
     if not torch.equal(anyh["prim"] >= 0, ref["prim"] >= 0):
-        raise AssertionError("single any-hit: hit mask differs")
-    print(f"parity: dual N={N_DUAL} max|dt|={err_dual:.3g} "
+        raise AssertionError("v4 single any-hit: hit mask differs")
+    print(f"parity dense_v4: dual N={N_DUAL} max|dt|={err['dual']:.3g} "
           f"hits={int((ref['prim'] >= 0).sum())}; single N={N_SINGLE} "
-          f"max|dt|={err_single:.3g}; any-hit mask equal")
-
-    times = {}
-    for name, args, fn, ref_fn in [
-            ("dual", dual_args, dense_v4.dense_trace_v4_dual,
-             dense_v4.dense_trace_v4_dual_ref),
-            ("single", single_args, dense_v4.dense_trace_v4,
-             dense_v4.dense_trace_v4_ref)]:
-        # kernel and plain walk alone on one prepared survivor list, then
-        # the whole wrapper (prelude included) for context
-        walk, plain_walk = walk_timers(dense_v4, *args,
-                                       dual=(name == "dual"))
-        times[name] = (cuda_ms(walk), cuda_ms(plain_walk, reps=5),
-                       cuda_ms(lambda: fn(*args)),
-                       cuda_ms(lambda: ref_fn(*args), reps=5))
-        print(f"time {name}: kernel {times[name][0]:.4f} ms, plain walk "
-              f"{times[name][1]:.4f} ms; wrapper with prelude "
-              f"{times[name][2]:.4f} ms vs plain {times[name][3]:.4f} ms "
-              f"({card})")
-
-    # phase 4: render parity, card (kernels) vs CPU (plain versions)
-    small = dict(width=32, height=32, spp=4, max_steps=12, k_volume=3)
-    img_gpu = render(scene, seed=SEED, **small).cpu().numpy()
-    img_cpu = render(scene_from_numpy(scene_np, "cpu"), seed=SEED,
-                     **small).numpy()
-    close = np.isclose(img_gpu, img_cpu, rtol=1e-3, atol=1e-4).mean()
-    rel_mean = abs(img_gpu.mean() - img_cpu.mean()) / img_cpu.mean()
-    print(f"render parity 32x32x4: {close * 100:.2f}% of values within "
-          f"rtol 1e-3/atol 1e-4, mean rel diff {rel_mean:.3g}, max |diff| "
-          f"{np.abs(img_gpu - img_cpu).max():.3g}, "
-          f"{(img_gpu == img_cpu).mean() * 100:.2f}% bit-equal")
-    if not (np.isfinite(img_gpu).all() and close >= 0.99
-            and rel_mean <= 1e-3):
-        raise AssertionError("render on the card disagrees with the CPU")
-
-    # phase 5: the main path, counted
-    for k in dense_v4.LAUNCHES:
-        dense_v4.LAUNCHES[k] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    total, iters = render_lanes_wavefront(
-        scene, MAIN["width"], MAIN["height"], MAIN["spp"], seed=SEED,
-        max_steps=MAIN["max_steps"], k_volume=MAIN["k_volume"],
-        return_iters=True)
-    img = (total.reshape(MAIN["height"], MAIN["width"], 3)
-           / MAIN["spp"]).cpu().numpy()
-    wall = time.perf_counter() - t0
-    launches = dict(dense_v4.LAUNCHES)
-    rays = MAIN["width"] * MAIN["height"] * MAIN["spp"]
-    print(f"main path: render 512x512x8 max_steps=12 k_volume=3 in "
-          f"{wall:.3f} s, {iters} sub-iterations, launches {launches}, "
-          f"mean {img.mean():.5f}, {rays / wall / 1e6:.3f} M camera "
-          f"samples/s ({card})")
-    if not (np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0):
-        raise AssertionError("main-path image is not finite, non-negative, lit")
-    if not (launches["dual"] > 0 and launches["single"] > 0):
-        raise AssertionError(f"main path missed a kernel: {launches}")
-
-    src = "pbrlab_tpu_torch/csrc/dense_v4.cu"
-    record = {"kernels": [
-        {"name": "dense_v4_trace_dual", "route": "cuda", "source": src,
-         "replaces": "pbrlab_tpu/ops/pallas/dense_v4.py:248",
-         "launches": launches["dual"], "max_abs_err": err_dual,
-         "ms": times["dual"][0], "plain_ms": times["dual"][1]},
-        {"name": "dense_v4_trace", "route": "cuda", "source": src,
-         "replaces": "pbrlab_tpu/ops/pallas/dense_v4.py:115",
-         "launches": launches["single"], "max_abs_err": err_single,
-         "ms": times["single"][0], "plain_ms": times["single"][1]},
-    ]}
-    print(json.dumps(record))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+          f"max|dt|={err['single']:.3g}; any-hit mask equal")
+    rec = {}
+    for name, args in (("dual", dual_args), ("single", single_args)):
+        walk, plain_walk, need = walk_timers(dense_v4, *args,
+                                             dual=(name == "dual"))
+        ms, plain = cuda_ms(walk), cuda_ms(plain_walk, reps=3)
+        n = args[2].shape[0]  # outputs: t, u, v, prim (+ occluded)
+        out_bytes = 16 * n + (n if name == "dual" else 0)
+        b_ms, b_by = bound(nbytes(*args) + out_bytes, OPS_TRI * need)
+        rec[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=err[name])
+        print(f"time dense_v4 {name}: kernel {ms:.4f} ms, plain walk "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {need} "
+              f"ray-triangle tests needed) ({card})")
+    return rec
 
 
 def walk_timers(dense_v4, tris, aabb, org, direction, min_t, max_t,
                 sdir=None, smin_t=None, smax_t=None, dual=False):
-    """(kernel, plain walk) closures over one prepared survivor list (the
-    rays are whole groups, so no padding is needed)."""
+    """(kernel, plain walk, tests needed) over one prepared survivor list
+    (the rays are whole groups, so no padding is needed). A lane needs the
+    32 tests of every survivor whose padded entry bound is below its final
+    best t (shadow: below its max t, unless occluded: then 1 cluster)."""
     gm, tn = dense_v4.exact_group_survivors(aabb, org, direction, min_t,
                                             max_t)
     extra = ()
@@ -241,6 +193,20 @@ def walk_timers(dense_v4, tris, aabb, org, direction, min_t, max_t,
         extra = (sdir, smin_t, smax_t)
     surv, cnt, tnear = dense_v4._survivor_lists(gm, tn)
     args = (tris, surv, cnt, tnear, org, direction, min_t, max_t, *extra)
+    best_t, _, _, _, occ = dense_v4._walk_ref(tris, surv, cnt, org,
+                                              direction, min_t, max_t, *extra)
+    g, m = surv.shape
+    listed = torch.arange(m, device=org.device)[None] < cnt[:, None]
+    lower = torch.where(listed, tnear * 0.999999 - 1e-6, float("inf"))
+
+    def clusters(limit, live):
+        below = lower[:, None, :] < limit.reshape(g, -1)[..., None]
+        return int((below.sum(-1) * live.reshape(g, -1)).sum())
+
+    need = clusters(best_t, max_t >= min_t)
+    if dual:
+        s_live = smax_t >= smin_t
+        need += clusters(smax_t, s_live & ~occ) + int((s_live & occ).sum())
 
     def kernel():
         dense_v4._walk_cuda(*args)
@@ -248,7 +214,246 @@ def walk_timers(dense_v4, tris, aabb, org, direction, min_t, max_t,
     def plain():
         dense_v4._walk_ref(tris, surv, cnt, org, direction, min_t, max_t,
                            *extra)
-    return kernel, plain
+    return kernel, plain, 32 * need
+
+
+def v5_case(dense_v5, name, tris, leaf_major, scene, rays, card, roots=None,
+            plain_reps=3):
+    """One dense_v5 kernel vs `_packet_ref` on whole groups: parity,
+    times, and the bound of the walk's tests (counted by the plain walk)."""
+    na, nm = scene["v5_node_aabb"], scene["v5_node_meta"]
+    org, direction, min_t, max_t = rays[:4]
+    kw = {}
+    if len(rays) > 4:
+        kw = dict(zip(("sdir", "smin_t", "smax_t"), rays[4:]))
+    args = (tris, leaf_major, na, nm, roots, org, direction, min_t, max_t)
+    got = dense_v5._packet_cuda(*args, **kw)
+    work = {}
+    ref = dense_v5._packet_ref(*args, **kw, work=work)
+    torch.cuda.synchronize()
+
+    def as_hits(r):
+        return {"t": r[0], "u": r[1], "v": r[2], "prim": r[3]}
+
+    err = check_hits(name, as_hits(got), as_hits(ref), got[4], ref[4])
+    ms = cuda_ms(lambda: dense_v5._packet_cuda(*args, **kw))
+    plain = cuda_ms(lambda: dense_v5._packet_ref(*args, **kw),
+                    reps=plain_reps, warmup=1)
+    ops = OPS_TRI * work["tri_tests"] + OPS_BOX * work["box_tests"]
+    b_ms, b_by = bound(nbytes(tris, na, nm, *rays, *got[:4]), ops)
+    print(f"{name}: N={org.shape[0]} hits={int((ref[3] >= 0).sum())} "
+          f"max|dt|={err:.3g}; kernel {ms:.4f} ms, plain walk {plain:.4f} ms,"
+          f" bound {b_ms:.4f} ms ({b_by}; {work['tri_tests']} ray-triangle "
+          f"and {work['box_tests']} ray-box tests) ({card})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+
+
+def v5_phase(dense_v5, mid, large, mid_rays, large_rays, card):
+    """dense_v5 (dual, single, any-hit) on the mid scene; dense_v5l with
+    and without group roots and dense_v5s on the large scene."""
+    dual, single = mid_rays
+    rec = {"v5_dual": v5_case(dense_v5, "dense_v5 dual", mid["dense_tris_v4"],
+                              False, mid, dual, card),
+           "v5": v5_case(dense_v5, "dense_v5 closest", mid["dense_tris_v4"],
+                         False, mid, single, card)}
+    args = (mid["dense_tris_v4"], mid["v5_node_aabb"], mid["v5_node_meta"])
+    anyh = dense_v5.dense_trace_v5(*args, *single, any_hit=True)
+    ref = dense_v5.dense_trace_v5(*args, *single, plain=True)
+    if not torch.equal(anyh["prim"] >= 0, ref["prim"] >= 0):
+        raise AssertionError("dense_v5 any-hit: hit mask differs")
+    print("dense_v5 any-hit: hit mask equal to the closest hit's")
+
+    ldual = large_rays[0]
+    tris = large["dense_tris_v5l"]
+    rec["v5l"] = v5_case(dense_v5, "dense_v5l whole tree", tris, True, large,
+                         ldual[:4], card, plain_reps=1)
+    sub = large["v5s_roots"]
+    roots = sub[torch.arange(N_DUAL // 1024, device=sub.device)
+                % sub.shape[0]].contiguous()
+    v5_case(dense_v5, "dense_v5l group roots", tris, True, large, ldual[:4],
+            card, roots=roots, plain_reps=1)
+
+    s_args = (tris, large["v5_node_aabb"], large["v5_node_meta"], sub,
+              large["v5s_aabb"], *ldual[:4])
+    got = dense_v5.dense_trace_v5s(*s_args)
+    ref = dense_v5.dense_trace_v5s(*s_args, plain=True)
+    torch.cuda.synchronize()
+    err = check_hits("dense_v5s", got, ref)
+    anyh = dense_v5.dense_trace_v5s(*s_args, any_hit=True)
+    if not torch.equal(anyh["prim"] >= 0, ref["prim"] >= 0):
+        raise AssertionError("dense_v5s any-hit: hit mask differs")
+    total = cuda_ms(lambda: dense_v5.dense_trace_v5s(*s_args), reps=10)
+    plain = cuda_ms(lambda: dense_v5.dense_trace_v5s(*s_args, plain=True),
+                    reps=1, warmup=1)
+    kernel_ms = v5s_kernel_share(dense_v5, s_args)
+    print(f"dense_v5s N={N_DUAL}: max|dt|={err:.3g}, any-hit mask equal; "
+          f"{total:.4f} ms a call (v5l inside: {kernel_ms:.4f} ms in "
+          f"its launches, {total - kernel_ms:.4f} ms scheduling ops), "
+          f"{plain:.4f} ms over the plain v5l ({card})")
+    return rec
+
+
+def v5s_kernel_share(dense_v5, s_args, reps=10):
+    """Median over reps of the CUDA-event time of the v5l launches inside
+    one dense_trace_v5s call."""
+    launch = dense_v5._packet_cuda
+    spans = []
+
+    def timed(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = launch(*a, **kw)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    per_call = []
+    dense_v5._packet_cuda = timed
+    try:
+        for _ in range(reps):
+            spans.clear()
+            dense_v5.dense_trace_v5s(*s_args)
+            torch.cuda.synchronize()
+            per_call.append(sum(a.elapsed_time(b) for a, b in spans))
+    finally:
+        dense_v5._packet_cuda = launch
+    return float(np.median(per_call))
+
+
+def render_parity(name, scene_np, scene, **kw):
+    from pbrlab_tpu_torch.render.integrator import render
+    from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+
+    img_gpu = render(scene, seed=SEED, **kw).cpu().numpy()
+    img_cpu = render(scene_from_numpy(scene_np, "cpu"), seed=SEED,
+                     **kw).numpy()
+    close = np.isclose(img_gpu, img_cpu, rtol=1e-3, atol=1e-4).mean()
+    rel_mean = abs(img_gpu.mean() - img_cpu.mean()) / img_cpu.mean()
+    print(f"render parity {name} {kw['width']}x{kw['height']}x{kw['spp']}: "
+          f"{close * 100:.2f}% of values within rtol 1e-3/atol 1e-4, mean "
+          f"rel diff {rel_mean:.3g}, max |diff| "
+          f"{np.abs(img_gpu - img_cpu).max():.3g}, "
+          f"{(img_gpu == img_cpu).mean() * 100:.2f}% bit-equal")
+    if not (np.isfinite(img_gpu).all() and close >= 0.99
+            and rel_mean <= 1e-3):
+        raise AssertionError(f"render of {name} on the card disagrees with "
+                             "the CPU")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pbrlab_tpu_torch.ops import cuda_lib, dense_v4, dense_v5
+    from pbrlab_tpu_torch.render.integrator import render_lanes_wavefront
+    from pbrlab_tpu_torch.scene.demo import build_demo_scene
+    from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+
+    dev = torch.device("cuda:0")
+    card = card_line()
+    t_start = time.perf_counter()
+    # phase 1: card
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    # phase 2: build every csrc/*.cu into one library (one nvcc per source)
+    t0 = time.perf_counter()
+    path, log = cuda_lib.build_library()
+    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    for line in log.splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    # the three paths' scenes (commit on the host, tables to the card)
+    scenes_np, scenes = {}, {}
+    for name, (kw, _, _) in PATHS.items():
+        t0 = time.perf_counter()
+        scenes_np[name] = build_demo_scene(**kw)[0]
+        scenes[name] = scene_from_numpy(scenes_np[name], dev)
+        s = scenes_np[name]
+        print(f"scene {name} {kw}: {int((s['face_area'] > 0).sum())} "
+              f"faces, {s['dense_tris_v4'].shape[1]} slots, "
+              f"{s['dense_cluster_aabb_v4'].shape[1]} clusters, "
+              f"{s['v5_node_aabb'].shape[1]} nodes, tables "
+              f"{sorted(k for k in s if k.startswith(('dense_tris', 'v5s')))}"
+              f", built in {time.perf_counter() - t0:.2f} s")
+
+    # phase 3: kernel parity and times at each path's shapes
+    rng = np.random.default_rng(SEED)
+    rays = {name: path_rays(scenes[name], dev, rng) for name in PATHS}
+    rec = v4_phase(dense_v4, scenes["cornellbox"], *rays["cornellbox"], card)
+    rec.update(v5_phase(dense_v5, scenes["mid"], scenes["large"],
+                        rays["mid"], rays["large"], card))
+
+    # phase 4: render parity, card (kernels) vs CPU (plain versions)
+    render_parity("cornellbox", scenes_np["cornellbox"], scenes["cornellbox"],
+                  width=32, height=32, spp=4, **SETTINGS)
+    render_parity("large", scenes_np["large"], scenes["large"], width=32,
+                  height=32, spp=2, **SETTINGS)
+    print(f"phases 1-4 took {time.perf_counter() - t_start:.1f} s")
+
+    # phase 5: the three paths, each with its launches counted
+    expect = {"cornellbox": (("v4", "dual"), ("v4", "single")),
+              "mid": (("v5", "v5_dual"), ("v5", "v5")),
+              "large": (("v5", "v5l"),)}
+    counters = {"v4": dense_v4.LAUNCHES, "v5": dense_v5.LAUNCHES}
+    launches = {}
+    for name, (_, size, spp) in PATHS.items():
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, iters = render_lanes_wavefront(
+            scenes[name], size, size, spp, seed=SEED, return_iters=True,
+            **SETTINGS)
+        img = (total.reshape(size, size, 3) / spp).cpu().numpy()
+        wall = time.perf_counter() - t0
+        counts = {f"{m}.{k}": v for m, c in counters.items()
+                  for k, v in c.items()}
+        launches[name] = {k: counters[m][k] for m, k in expect[name]}
+        print(f"path {name}: render {size}x{size}x{spp} max_steps="
+              f"{SETTINGS['max_steps']} k_volume={SETTINGS['k_volume']} in "
+              f"{wall:.3f} s, {iters} sub-iterations, launches {counts}, "
+              f"mean {img.mean():.5f}, {size * size * spp / wall / 1e6:.4f} "
+              f"M camera samples/s ({card})")
+        if not (np.isfinite(img).all() and (img >= 0).all()
+                and img.mean() > 0):
+            raise AssertionError(f"{name} image is not finite, "
+                                 "non-negative, lit")
+        if not all(launches[name].values()):
+            raise AssertionError(f"{name} path missed a kernel: {counts}")
+    print(f"all phases took {time.perf_counter() - t_start:.1f} s")
+
+    v4_src = "pbrlab_tpu_torch/csrc/dense_v4.cu"
+    v5_src = "pbrlab_tpu_torch/csrc/dense_v5.cu"
+    v4_py = "pbrlab_tpu/ops/pallas/dense_v4.py"
+    v5_py = "pbrlab_tpu/ops/pallas/dense_v5.py"
+    rows = [("dense_v4_trace_dual", v4_src, f"{v4_py}:248",
+             launches["cornellbox"]["dual"], rec["dual"]),
+            ("dense_v4_trace", v4_src, f"{v4_py}:115",
+             launches["cornellbox"]["single"], rec["single"]),
+            ("dense_v5_trace_dual", v5_src, f"{v5_py}:357",
+             launches["mid"]["v5_dual"], rec["v5_dual"]),
+            ("dense_v5_trace", v5_src, f"{v5_py}:134",
+             launches["mid"]["v5"], rec["v5"]),
+            ("dense_v5l_trace", v5_src, f"{v5_py}:646",
+             launches["large"]["v5l"], rec["v5l"])]
+    record = {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": None}
+        for name, src, rep, n, r in rows]}
+    print(json.dumps(record))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 if __name__ == "__main__":

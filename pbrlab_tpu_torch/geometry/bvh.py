@@ -6,9 +6,10 @@ next depth-first node whose subtree is disjoint. Leaves hold a fixed-size
 window [prim_offset, prim_offset + leaf_size) into a reordered primitive
 array padded with -1; children are ordered along the split axis.
 
-The JAX package routes builds of >= 4096 primitives through its native
-C++ builder; the port always runs this numpy build (the native loader
-comes with the large-scene slice, ROADMAP A10).
+Builds of >= 4096 primitives go through the native C++ builder
+(`geometry.native`, `csrc/bvh_builder.cpp`), as in the JAX package: its
+tree differs from this numpy build's, so the routing must be the same for
+the slot ids to be.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 
 LEAF_SIZE = 4
 N_BINS = 16
+NATIVE_MIN_PRIMS = 4096  # builds this large go through the native builder
 
 
 @dataclasses.dataclass
@@ -45,6 +47,10 @@ def build_bvh(prim_bmin: np.ndarray, prim_bmax: np.ndarray,
               leaf_size: int = LEAF_SIZE) -> BVH:
     """Build from per-primitive AABBs [P, 3]."""
     P = prim_bmin.shape[0]
+    if P >= NATIVE_MIN_PRIMS:
+        from .native import build_bvh_native
+
+        return build_bvh_native(prim_bmin, prim_bmax, leaf_size)
     if P == 0:
         return BVH(
             aabb_min=np.zeros((1, 3), np.float32),

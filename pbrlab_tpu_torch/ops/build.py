@@ -1,10 +1,12 @@
 """Trace-table builds (numpy): the port's copies of the host-side builds in
 pbrlab_tpu/ops/pallas/dense_v4.py (`pack_triangles_sah`) and
-pbrlab_tpu/ops/pallas/dense_v5.py (`build_v5`), whose modules import jax.
+pbrlab_tpu/ops/pallas/dense_v5.py (`build_v5`, `leaf_major`,
+`subtree_cut`), whose modules import jax.
 
 One leaf-32 binned-SAH build gives the dense_v4 triangle table and its
 cluster AABBs, the slot order that `scene.commit` reorders faces into,
-and the BVH node arrays that `scene._signature_cut` reads.
+and the BVH node arrays of the dense_v5 packet traversal; `leaf_major` and
+`subtree_cut` add the large-scene (dense_v5l / v5s) tables.
 
 Packed triangle rows [12, S] (S = M * CLUSTER slots) are the linear forms
 0:3 n, 3 k0 = n.v0, 4:7 b1, 7 c1 = b1.v0, 8:11 b2, 11 c2 = b2.v0, with
@@ -99,3 +101,40 @@ def pack_triangles_sah(tri_v0: np.ndarray, tri_e1: np.ndarray,
     """dense_v4 tables alone: (packed [12, S], cluster_aabb [8, M],
     order [S]) — the same arrays as the first three of `build_v5`."""
     return build_v5(tri_v0, tri_e1, tri_e2, cluster)[:3]
+
+
+def leaf_major(packed: np.ndarray, cluster: int = CLUSTER) -> np.ndarray:
+    """[12, S] attr-major -> [M, 3, 128] leaf-major (the dense_v5l table):
+    leaf m's 12 * 32 floats are contiguous, element (attr a, triangle k)
+    at flat index a * cluster + k. The [3, 128] view is the JAX package's
+    (its TPU DMA wanted 128-lane rows); the CUDA kernel reads it flat."""
+    assert 12 * cluster % 128 == 0
+    m = packed.shape[1] // cluster
+    return np.ascontiguousarray(
+        packed.reshape(12, m, cluster).transpose(1, 0, 2)).reshape(
+            m, 12 * cluster // 128, 128)
+
+
+def subtree_cut(node_aabb: np.ndarray, node_meta: np.ndarray,
+                max_nodes: int = 64):
+    """BFS cut of the BVH into <= max_nodes subtree roots, expanding the
+    largest-surface node first. Returns (roots [C] int32 node ids in
+    ascending order, aabb [6, C] float32): the dense_v5s schedule's
+    subtrees, and the boxes of the integrator's compaction signature."""
+    right = node_meta[0]
+    cut = [0]
+    while True:
+        areas = []
+        for n in cut:
+            if right[n] < 0:
+                areas.append(-1.0)  # leaf: cannot expand
+            else:
+                d = np.maximum(node_aabb[3:6, n] - node_aabb[0:3, n], 0.0)
+                areas.append(float(d[0] * d[1] + d[1] * d[2] + d[2] * d[0]))
+        j = int(np.argmax(areas))
+        if areas[j] < 0.0 or len(cut) + 1 > max_nodes:
+            break
+        n = cut.pop(j)
+        cut = [n + 1, int(right[n])] + cut
+    roots = np.asarray(sorted(cut), np.int32)
+    return roots, node_aabb[:, roots].astype(np.float32)

@@ -28,30 +28,17 @@ dual query an occluded bool per lane (False where smax_t < smin_t).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ..core.math import INF
+from . import cuda_lib
 
 GROUP = 1024  # rays per group: one survivor list per group
 CLUSTER = 32  # triangles per cluster (SAH leaf window)
 _BIG = 1e30
 
 LAUNCHES = {"single": 0, "dual": 0}
-
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "dense_v4.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-# --fmad=false keeps every product and sum separately rounded, as the plain
-# torch walk computes them, so kernel and plain version agree to the bit;
-# no --use_fast_math: the divisions stay IEEE.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v"]
-_lib = None
 
 
 def slab_interval(aabb, org, direction, min_t):
@@ -173,49 +160,15 @@ def _walk_ref(tris, surv, cnt, org, direction, min_t, max_t,
     return (*flat, None if occ is None else occ.reshape(-1))
 
 
-def build_library():
-    """Compile csrc/dense_v4.cu with nvcc into build/ (once per source and
-    flag set; the name carries their hash). Returns (path, nvcc log)."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libdense_v4_{tag}.so"
-    log = out.with_suffix(".log")
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([str(nvcc), *NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    return out, log.read_text() if log.exists() else ""
-
-
-def _load_library():
-    global _lib
-    if _lib is None:
-        path, _ = build_library()
-        lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dense_v4_trace.argtypes = [p, i, p, p, p, i, p, p, p, p, i, i,
-                                       p, p, p, p, p]
-        lib.dense_v4_trace.restype = i
-        lib.dense_v4_trace_dual.argtypes = [p, i, p, p, p, i, p, p, p, p,
-                                            p, p, p, i, p, p, p, p, p, p]
-        lib.dense_v4_trace_dual.restype = i
-        _lib = lib
-    return _lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_TRACE_ARGS = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+               _P, _P, _P, _P, _P]
+_DUAL_ARGS = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+              _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
 
 
 def _check(x, dtype, shape, device):
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
-            or not x.is_contiguous():
-        raise ValueError(
-            f"dense_v4 kernel wants a contiguous {dtype} tensor of shape "
-            f"{shape} on {device}; got {x.dtype} {tuple(x.shape)} on "
-            f"{x.device} (contiguous={x.is_contiguous()})")
+    cuda_lib.check_tensor("dense_v4", x, dtype, shape, device)
 
 
 def _walk_cuda(tris, surv, cnt, tnear, org, direction, min_t, max_t,
@@ -241,7 +194,6 @@ def _walk_cuda(tris, surv, cnt, tnear, org, direction, min_t, max_t,
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     prim = torch.empty((n,), dtype=i32, device=dev)
-    lib = _load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = [tris.data_ptr(), tris.shape[1], surv.data_ptr(),
@@ -250,18 +202,17 @@ def _walk_cuda(tris, surv, cnt, tnear, org, direction, min_t, max_t,
         outs = [t.data_ptr(), u.data_ptr(), v.data_ptr(), prim.data_ptr()]
         if sdir is None:
             occ = None
-            rc = lib.dense_v4_trace(*head, int(any_hit), n, *outs, stream)
             kind = "single"
+            rc = cuda_lib.function("dense_v4_trace", _TRACE_ARGS)(
+                *head, int(any_hit), n, *outs, stream)
         else:
             occ = torch.empty((n,), dtype=torch.uint8, device=dev)
-            rc = lib.dense_v4_trace_dual(
+            kind = "dual"
+            rc = cuda_lib.function("dense_v4_trace_dual", _DUAL_ARGS)(
                 *head, sdir.data_ptr(), smin_t.data_ptr(), smax_t.data_ptr(),
                 n, *outs, occ.data_ptr(), stream)
             occ = occ.bool()
-            kind = "dual"
-    if rc != 0:
-        raise RuntimeError(f"dense_v4 {kind} kernel launch failed: CUDA "
-                           f"error {rc}")
+    cuda_lib.launched(f"dense_v4 {kind}", rc)
     LAUNCHES[kind] += 1
     return t, u, v, prim, occ
 

@@ -6,7 +6,8 @@ One SoA `PathState` of N lanes; every `wavefront_step` advances each lane
 by one trace: a surface bounce, or one step of the random-walk SSS
 ("volume mode"). Next-event estimation is deferred: the shadow ray a step
 emits is answered inside the next step's closest-hit launch (the dual
-dense_v4 kernel). RNG streams are per lane and counter-seeded, so a
+dense_v4 or dense_v5 kernel; a second launch on the large-scene backends).
+RNG streams are per lane and counter-seeded, so a
 lane's result does not depend on where it sits in the wavefront.
 
 The JAX package's `lax.while_loop` / `lax.cond` are Python control flow
@@ -31,7 +32,7 @@ from ..core.onb import branchless_onb, to_global, to_local
 from ..core.sampling import (cosine_sample_hemisphere, power_heuristic_weight,
                              uniform_sample_sphere)
 from ..ops.dense_v4 import slab_interval
-from ..ops.intersect import trace_scene, trace_scene_dual
+from ..ops.intersect import sparse_backend, trace_scene, trace_scene_dual
 from ..scene.lights import sample_all_light
 from ..scene.materials import unpack_material_rows
 from ..scene.scene import build_fat_tables
@@ -205,7 +206,8 @@ def _nee(scene, pos, geom_normal, omega_out_local, ex, ey, ez,
 
 
 def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
-                   resolve_pending: bool = False) -> PathState:
+                   resolve_pending: bool = False,
+                   windowed: bool = False) -> PathState:
     """Advance every lane by one trace.
 
     freeze_surface=True runs a volume-only substep: surface-mode lanes do
@@ -215,10 +217,12 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     volume-entry lanes' deferred NEE must resolve before the walk moves
     their origin. Full steps always resolve every pending query.
 
-    Every trace goes through dense_v4. On the TPU the JAX package swaps in
-    dense_v5 for unwindowed substeps (`sparse_backend`, a speed choice for
-    mostly-dead wavefronts); the trace contract is the same, so the port
-    keeps dense_v4 there until dense_v5 is ported.
+    Traces take the scene's backend (`intersect._tri_backend`), except an
+    unwindowed substep (freeze_surface and not windowed), whose wavefront
+    is mostly dead lanes: it takes `sparse_backend` (dense_v5 for a dense_v4
+    scene, dense_v5l for a dense_v5s one), as the JAX package does. The
+    lanes of a windowed substep are mostly walkers, so it keeps the scene's
+    backend. The choice changes the work, never a hit.
     """
     n = state.org.shape[0]
     dev = state.org.device
@@ -238,6 +242,8 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     max_t = torch.where(state.alive, max_t, -1.0)  # dead lanes: no traversal
 
     # ---- one trace launch: closest hit (+ the pending shadow queries) ----
+    backend = (sparse_backend(scene) if freeze_surface and not windowed
+               else None)
     nee_active = state.nee_maxt >= 0.0
     contribution = state.contribution
     resolved_now = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -249,14 +255,15 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
         hit, occ_prev = trace_scene_dual(
             scene, state.org, direction, min_t, max_t, state.nee_dir,
             torch.full((n,), EPS, device=dev),
-            torch.where(resolve_mask, state.nee_maxt, -1.0))
+            torch.where(resolve_mask, state.nee_maxt, -1.0), backend=backend)
         contribution = contribution + torch.where(
             (resolve_mask & ~occ_prev)[..., None], state.nee_contrib, 0.0)
         resolved_now = resolve_mask
     else:
         # later substeps resolve nothing (the JAX package's all-dead
         # shadow trace here has no effect and is skipped)
-        hit = trace_scene(scene, state.org, direction, min_t, max_t)
+        hit = trace_scene(scene, state.org, direction, min_t, max_t,
+                          backend=backend)
     prim = hit["prim"]
     hit_ok = prim >= 0
     t_eff = torch.where(volume_mode & ~hit_ok, t_scatter, hit["t"])
@@ -538,14 +545,14 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
             contribution=contribution)
         return state, pix_acc, pend_rgb, pend_pix, next_pixel
 
-    def vol_substeps(st):
+    def vol_substeps(st, windowed=False):
         for i in range(k_volume):
             st = wavefront_step(scene, st, freeze_surface=True,
-                                resolve_pending=(i == 0))
+                                resolve_pending=(i == 0), windowed=windowed)
         return st
 
-    def vol_substeps_packed(p):
-        st = vol_substeps(unpack_state(p[:, :PC]))
+    def vol_substeps_packed(p, windowed=False):
+        st = vol_substeps(unpack_state(p[:, :PC]), windowed)
         return torch.cat([pack_state(st), p[:, PC:]], dim=1)
 
     # generous iteration cap (a pixel costs <= spp * max_steps *
@@ -586,7 +593,7 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
                           & (packed[:, 17] > 0.5)).sum())  # host sync
                 if nv <= vol_window:
                     packed = torch.cat([
-                        vol_substeps_packed(packed[:vol_window]),
+                        vol_substeps_packed(packed[:vol_window], True),
                         packed[vol_window:]])
                 else:
                     packed = vol_substeps_packed(packed)

@@ -2,15 +2,16 @@
 (port of pbrlab_tpu.scene.scene; reference scene.{h,cc}, light-manager.cc).
 
 `SceneBuilder.build` and `commit` are numpy, as in the JAX package, and
-produce the same arrays for the tables this slice reads: every triangle
+produce the same arrays for the tables the port reads: every triangle
 baked to world space, per-face columns in SAH slot order, the flattened
-light CDF, the dense_v4 trace tables and the compaction signature boxes.
+light CDF, the dense_v4 / v5 trace tables, the dense_v5l / v5s tables of
+scenes past 18000 slots, and the compaction signature boxes.
 `scene_from_numpy` moves a committed scene (from either package) to torch
 tensors on a device; `build_fat_tables` packs the per-lane fat rows there.
 
-Not in this slice: hair curves, textures, shared instancing, and the
-tables of the dense_v5l/v5s, legacy dense v1-v3 and threaded-BVH trace
-backends (ROADMAP A10-A13).
+Not ported yet: hair curves, textures, shared instancing, and the tables
+of the legacy dense v1-v3 and threaded-BVH trace backends (ROADMAP
+A11-A13, B8).
 """
 from __future__ import annotations
 
@@ -21,8 +22,10 @@ import numpy as np
 import torch
 
 from ..geometry.mesh import TriangleMesh
-from ..ops.build import build_v5
+from ..ops.build import build_v5, leaf_major, subtree_cut
 from .materials import MaterialBuilder, pack_material_fat
+
+V5L_MIN_SLOTS = 18000  # commit adds the dense_v5l / v5s tables above this
 
 # per-face columns that commit reorders into slot order
 _FACE_COLUMNS = ("tri_v0", "tri_e1", "tri_e2", "face_ng", "face_area",
@@ -167,25 +170,10 @@ def _signature_cut(node_aabb: np.ndarray, node_meta: np.ndarray,
     """BFS cut of the trace BVH: <= max_nodes subtree AABBs [6, K], the
     boxes of the integrator's one-word compaction signature. Padding
     columns are empty boxes (lo=+inf) that never set a bit."""
-    right = node_meta[0]
-    cut = [0]  # expand the largest-surface node first until the cut is full
-    while True:
-        areas = []
-        for n in cut:
-            if right[n] < 0:
-                areas.append(-1.0)  # leaf: cannot expand
-            else:
-                d = np.maximum(node_aabb[3:6, n] - node_aabb[0:3, n], 0.0)
-                areas.append(float(d[0] * d[1] + d[1] * d[2] + d[2] * d[0]))
-        j = int(np.argmax(areas))
-        if areas[j] < 0.0 or len(cut) + 1 > max_nodes:
-            break
-        n = cut.pop(j)
-        cut = [n + 1, int(right[n])] + cut
+    _, aabb = subtree_cut(node_aabb, node_meta, max_nodes)
     out = np.full((6, max_nodes), np.inf, np.float32)
     out[3:6, :] = -np.inf
-    for i, n in enumerate(sorted(cut)):
-        out[:, i] = node_aabb[:, n]
+    out[:, :aabb.shape[1]] = aabb
     return out
 
 
@@ -218,6 +206,14 @@ def commit(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     scene["v5_node_aabb"] = node_aabb5
     scene["v5_node_meta"] = node_meta5
     scene["sig_aabb"] = _signature_cut(node_aabb5, node_meta5, max_nodes=29)
+    if packed4.shape[1] > V5L_MIN_SLOTS:
+        # the JAX package's large-scene tables (its TPU kept the [12, S]
+        # table in a 1 MB scalar memory up to here): the leaf-major table
+        # of dense_v5l and the 64-subtree cut that dense_v5s schedules
+        scene["dense_tris_v5l"] = leaf_major(packed4)
+        roots, sub_aabb = subtree_cut(node_aabb5, node_meta5, max_nodes=64)
+        scene["v5s_roots"] = roots
+        scene["v5s_aabb"] = sub_aabb
     return scene
 
 
@@ -230,7 +226,8 @@ def scene_from_numpy(scene_np: Dict, device) -> Dict:
         if isinstance(val, dict):
             out[key] = scene_from_numpy(val, device)
         else:
-            out[key] = torch.from_numpy(np.array(val)).to(device)
+            # C order: the kernels read the tables as they lie
+            out[key] = torch.from_numpy(np.array(val, order="C")).to(device)
     return out
 
 

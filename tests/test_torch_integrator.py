@@ -2,12 +2,14 @@
 
 (a) One `wavefront_step` from the same state: the state comes from the JAX
     package's own first steps, then both packages advance it once, JAX
-    forced to the dense_v4 kernels in interpret mode (the port's only
-    backend). Same float32 math, same trace: every bool and int field must
-    be equal; floats within rtol 1e-5 on 99.5% of values and rtol 1e-2 on
-    all (XLA:CPU and torch may round a sum or a transcendental differently
-    by an ulp, which the GGX sample of a few ill-conditioned lanes grows;
-    see test_torch_shading.py). bsdf_pdf takes the 99.5% band only: on the
+    forced to the port's backend for the scene (dense_v4, or dense_v5 /
+    dense_v5s with their sparse substep backends) with its Pallas kernels
+    in interpret mode. Same float32 math, same trace: every bool and int
+    field must be equal; floats within rtol 1e-5 on 99.5% of values and
+    rtol 1e-2 on all (XLA:CPU and torch may round a sum or a
+    transcendental differently by an ulp, which the GGX sample of a few
+    ill-conditioned lanes grows; see test_torch_shading.py). bsdf_pdf
+    takes the 99.5% band only: on the
     glossy body (roughness 0.01, alpha 1e-4) it is a near-delta density
     that moves ~1/alpha times an ulp change of the sampled direction.
 (b) The whole `render` against tests/goldens/cpu_goldens.npz, JAX CPU
@@ -16,8 +18,9 @@
     path can amplify: >= 99% of values within rtol 1e-3/atol 1e-4 and the
     image mean within 1e-3 relative.
 (c) The volume-substep window is a speed choice only: window 1 (nearly
-    always the overflow branch), the default and window off give equal
-    images.
+    always the overflow branch, whose unwindowed substeps trace with
+    dense_v5 where the windowed ones use dense_v4), the default and window
+    off give equal images.
 (d) Two renders give the same bits.
 """
 from functools import partial
@@ -125,7 +128,59 @@ def test_volume_substep_matches_jax(scenes, jax_dense4, resolve_pending):
                                resolve_pending=resolve_pending,
                                windowed=True)
     got = tint.wavefront_step(scene_t, _to_torch(state), freeze_surface=True,
-                              resolve_pending=resolve_pending)
+                              resolve_pending=resolve_pending, windowed=True)
+    _assert_state_close(got, want)
+
+
+STEP_KINDS = {  # wavefront_step arguments of each kind of step
+    "full": {},
+    "first-substep": dict(freeze_surface=True, resolve_pending=True,
+                          windowed=True),
+    "later-substep": dict(freeze_surface=True, resolve_pending=False,
+                          windowed=True),
+    "unwindowed-substep": dict(freeze_surface=True, resolve_pending=False),
+}
+
+
+@pytest.mark.parametrize("kind", list(STEP_KINDS))
+@pytest.mark.parametrize("backend", ["dense5", "dense5s"])
+def test_step_matches_jax_on_v5_backends(scenes, jax_dense4, monkeypatch,
+                                         backend, kind):
+    """One step of each kind on a scene dispatched to dense_v5 (the
+    cluster limit patched to 0) or dense_v5s (its tables added to the
+    subdiv=1 scene): full and windowed steps take that backend, the
+    unwindowed substep its sparse one (dense_v5 stays, dense_v5s ->
+    dense_v5l). The state comes from JAX steps on dense_v4; then JAX is
+    forced to the backend, its kernels interpreted (`_closest_tri` calls
+    dense_trace_v5 / v5l without `interpret=`)."""
+    import jax.numpy as jnp
+    from pbrlab_tpu.ops.pallas import dense_v5 as jv5
+    from pbrlab_tpu_torch.ops import build as tbuild
+    from pbrlab_tpu_torch.ops import intersect as tisect
+
+    scene_j, scene_t = scenes
+    state = _jax_state_after(scene_j, 2)
+    if backend == "dense5s":
+        tris = np.asarray(scene_j["dense_tris_v4"])
+        cut = (np.asarray(scene_j["v5_node_aabb"]),
+               np.asarray(scene_j["v5_node_meta"]))
+        roots, aabb = jv5.subtree_cut(*cut)
+        scene_j = {**scene_j, "dense_tris_v5l": jnp.asarray(
+            jv5.leaf_major(tris)), "v5s_roots": jnp.asarray(roots),
+            "v5s_aabb": jnp.asarray(aabb)}
+        roots, aabb = tbuild.subtree_cut(*cut, max_nodes=64)
+        scene_t = {**scene_t, "dense_tris_v5l": torch.from_numpy(
+            tbuild.leaf_major(tris)), "v5s_roots": torch.from_numpy(roots),
+            "v5s_aabb": torch.from_numpy(aabb)}
+    else:
+        monkeypatch.setattr(tisect, "MAX_DENSE4_CLUSTERS", 0)
+    assert tisect._tri_backend(scene_t) == backend
+    monkeypatch.setenv("PBRLAB_TRACE_BACKEND", backend)
+    for name in ("dense_trace_v5", "dense_trace_v5l"):
+        monkeypatch.setattr(jv5, name,
+                            partial(getattr(jv5, name), interpret=True))
+    want = jint.wavefront_step(scene_j, state, 0, **STEP_KINDS[kind])
+    got = tint.wavefront_step(scene_t, _to_torch(state), **STEP_KINDS[kind])
     _assert_state_close(got, want)
 
 

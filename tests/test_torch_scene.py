@@ -1,7 +1,9 @@
 """Scene build and commit of the port against the JAX package.
 
-Both sides are numpy up to `scene_from_numpy`, so every table the slice
+Both sides are numpy up to `scene_from_numpy`, so every table the port
 reads must be equal exactly; so must the fat rows packed on the device.
+The large scenes (>= 4096 triangles) build their BVH with the native
+builder on both sides (the port's copy of native/builder.cpp).
 """
 import numpy as np
 import pytest
@@ -21,16 +23,22 @@ SLICE_KEYS = ("tri_v0", "tri_e1", "tri_e2", "face_ng", "face_area",
               "light_cdf", "light_emission", "aabb_min", "aabb_max",
               "dense_tris_v4", "dense_cluster_aabb_v4", "v5_node_aabb",
               "v5_node_meta", "sig_aabb")
+LARGE_KEYS = ("dense_tris_v5l", "v5s_roots", "v5s_aabb")
 
 
 @pytest.mark.parametrize("kw", [dict(subdiv=1), dict(subdiv=3),
                                 dict(subdiv=1, lambert_only=True,
-                                     irregular=True)],
-                         ids=["subdiv1", "subdiv3", "irregular"])
+                                     irregular=True),
+                                dict(subdiv=4),
+                                dict(subdiv=5, irregular=True)],
+                         ids=["subdiv1", "subdiv3", "irregular", "subdiv4",
+                              "large"])
 def test_commit_matches_jax(kw):
     want, _ = jdemo.build_demo_scene(**kw)
     got, _ = tdemo.build_demo_scene(**kw)
-    for key in SLICE_KEYS:
+    large = [k for k in LARGE_KEYS if k in want]
+    assert large == [k for k in LARGE_KEYS if k in got]
+    for key in SLICE_KEYS + tuple(large):
         assert got[key].dtype == want[key].dtype, key
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     for key, col in want["materials"].items():
@@ -41,6 +49,25 @@ def test_commit_matches_jax(kw):
         assert got["dense_cluster_aabb_v4"].shape == (8, 122)
         assert got["v5_node_aabb"].shape == (6, 243)
         assert np.isfinite(got["sig_aabb"]).all()  # 29 real subtrees
+    if kw["subdiv"] == 4:  # the mid-size path: dense_v5, no v5l tables
+        assert got["dense_tris_v4"].shape == (12, 14752) and not large
+        assert got["dense_cluster_aabb_v4"].shape == (8, 461)
+    if kw["subdiv"] == 5:  # bench.py's large scene: dense_v5s
+        assert got["tri_v0"].shape[0] == 58464  # slots (40972 faces)
+        assert got["dense_tris_v5l"].shape == (1827, 3, 128)
+        assert got["v5s_roots"].shape == (64,)
+        assert got["v5_node_aabb"].shape == (6, 3653)
+
+
+def test_native_build_failure_raises(tmp_path, monkeypatch):
+    """A failed compile of the native builder raises: the numpy build gives
+    another tree, so falling back would change every slot id."""
+    from pbrlab_tpu_torch.geometry import native
+
+    monkeypatch.setattr(native, "_BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CXX", "false")
+    with pytest.raises(RuntimeError):
+        native.build_library()
 
 
 def test_pack_triangles_sah_matches_jax():
