@@ -181,8 +181,8 @@ def walk_timers(dense_v4, tris, aabb, org, direction, min_t, max_t,
                 sdir=None, smin_t=None, smax_t=None, dual=False):
     """(kernel, plain walk, tests needed) over one prepared survivor list
     (the rays are whole groups, so no padding is needed). A lane needs the
-    32 tests of every survivor whose padded entry bound is below its final
-    best t (shadow: below its max t, unless occluded: then 1 cluster)."""
+    32 tests of every cluster whose box it enters before its final best t
+    (shadow: before its max t, unless occluded: then 1 cluster)."""
     gm, tn = dense_v4.exact_group_survivors(aabb, org, direction, min_t,
                                             max_t)
     extra = ()
@@ -195,18 +195,14 @@ def walk_timers(dense_v4, tris, aabb, org, direction, min_t, max_t,
     args = (tris, surv, cnt, tnear, org, direction, min_t, max_t, *extra)
     best_t, _, _, _, occ = dense_v4._walk_ref(tris, surv, cnt, org,
                                               direction, min_t, max_t, *extra)
-    g, m = surv.shape
-    listed = torch.arange(m, device=org.device)[None] < cnt[:, None]
-    lower = torch.where(listed, tnear * 0.999999 - 1e-6, float("inf"))
-
-    def clusters(limit, live):
-        below = lower[:, None, :] < limit.reshape(g, -1)[..., None]
-        return int((below.sum(-1) * live.reshape(g, -1)).sum())
-
-    need = clusters(best_t, max_t >= min_t)
+    # each lane's own slab test (a group of one), capped at its answer
+    need = int(dense_v4.exact_group_survivors(aabb, org, direction, min_t,
+                                              best_t, group=1)[0].sum())
     if dual:
         s_live = smax_t >= smin_t
-        need += clusters(smax_t, s_live & ~occ) + int((s_live & occ).sum())
+        s_need = dense_v4.exact_group_survivors(aabb, org, sdir, smin_t,
+                                                smax_t, group=1)[0]
+        need += int(s_need[~occ].sum()) + int((s_live & occ).sum())
 
     def kernel():
         dense_v4._walk_cuda(*args)
@@ -217,10 +213,96 @@ def walk_timers(dense_v4, tris, aabb, org, direction, min_t, max_t,
     return kernel, plain, 32 * need
 
 
+def bvh_levels(node_meta):
+    """Parent and depth of every node of the preorder BVH (left child =
+    node + 1, right child = meta[0] when >= 0, else a leaf)."""
+    right = node_meta[0].cpu().numpy()
+    parent = np.full(right.shape, -1)
+    depth = np.zeros(right.shape, np.int64)
+    for i in np.flatnonzero(right >= 0):  # preorder: parents come first
+        parent[[i + 1, right[i]]] = i
+        depth[[i + 1, right[i]]] = depth[i] + 1
+    return parent, depth, right < 0
+
+
+def lane_visits(node_aabb, levels, org, direction, min_t, cap, lane_root):
+    """[nodes, N] bool: the nodes a lane must visit on its own, knowing its
+    final best t (`cap`): its start node, then every child of a visited
+    node whose box it enters before cap (the kernels' slab test)."""
+    from pbrlab_tpu_torch.ops.dense_v5 import _inv
+
+    parent, depth, _ = levels
+    dev = org.device
+    inv = [_inv(d) for d in direction.unbind(1)]
+    oi = [o * i for o, i in zip(org.unbind(1), inv)]
+    vis = torch.zeros((parent.shape[0], org.shape[0]), dtype=torch.bool,
+                      device=dev)
+    for d in range(int(depth.max()) + 1):
+        for chunk in np.array_split(np.flatnonzero(depth == d),
+                                    max(1, int((depth == d).sum()) // 256)):
+            ids = torch.as_tensor(chunk, device=dev)
+            box = node_aabb[:, ids][..., None]  # [6, k, 1]
+            near, far = [], []
+            for a in range(3):
+                t0 = box[a] * inv[a] - oi[a]
+                t1 = box[a + 3] * inv[a] - oi[a]
+                near.append(torch.minimum(t0, t1))
+                far.append(torch.maximum(t0, t1))
+            tnear = torch.maximum(torch.maximum(near[0], near[1]),
+                                  torch.maximum(near[2], min_t))
+            tfar = torch.minimum(torch.minimum(far[0], far[1]),
+                                 torch.minimum(far[2], cap))
+            enters = tnear <= tfar * 1.00000024
+            par = torch.as_tensor(parent[chunk], device=dev)
+            from_parent = vis[par.clamp(min=0)] & enters & (par >= 0)[:, None]
+            vis[ids] = from_parent | (lane_root[None] == ids[:, None])
+    return vis
+
+
+def v5_need(scene, roots, rays, best_t, occ):
+    """(ray-triangle tests, ray-box tests) that these inputs need when each
+    lane walks the BVH alone knowing its answer: a closest-hit lane tests
+    the 32 triangles of every leaf it enters before its final best t and
+    the 2 children of every inner node it enters; a shadow lane that is not
+    occluded does the same up to its max t, an occluded one tests one leaf
+    and the children along the shortest path to a leaf it enters."""
+    na, nm = scene["v5_node_aabb"], scene["v5_node_meta"]
+    levels = bvh_levels(nm)
+    _, depth, is_leaf = levels
+    leaf = torch.as_tensor(is_leaf, device=na.device)
+    org, direction, min_t, max_t = rays[:4]
+    n = org.shape[0]
+    lane_root = torch.zeros((n,), dtype=torch.int64, device=org.device)
+    if roots is not None:
+        lane_root = roots.to(torch.int64).repeat_interleave(
+            n // roots.shape[0])
+    root_depth = torch.as_tensor(depth, device=org.device)[lane_root]
+
+    def count(vis, live):
+        vis = vis & live[None]
+        return (32 * int(vis[leaf].sum()), 2 * int(vis[~leaf].sum()))
+
+    tri, box = count(lane_visits(na, levels, org, direction, min_t, best_t,
+                                 lane_root), max_t >= min_t)
+    if len(rays) > 4:
+        sdir, smin_t, smax_t = rays[4:]
+        vis = lane_visits(na, levels, org, sdir, smin_t, smax_t, lane_root)
+        s_live = smax_t >= smin_t
+        t_s, b_s = count(vis, s_live & ~occ)
+        leaf_depth = torch.as_tensor(depth, device=org.device)[leaf]
+        shallow = torch.where(vis[leaf], leaf_depth[:, None],
+                              1 << 30).amin(dim=0)
+        hit = s_live & occ
+        tri += t_s + 32 * int(hit.sum())
+        box += b_s + 2 * int(torch.where(hit & (shallow < 1 << 30),
+                                         shallow - root_depth, 0).sum())
+    return tri, box
+
+
 def v5_case(dense_v5, name, tris, leaf_major, scene, rays, card, roots=None,
             plain_reps=3):
     """One dense_v5 kernel vs `_packet_ref` on whole groups: parity,
-    times, and the bound of the walk's tests (counted by the plain walk)."""
+    times, and the bound of the tests each lane needs (`v5_need`)."""
     na, nm = scene["v5_node_aabb"], scene["v5_node_meta"]
     org, direction, min_t, max_t = rays[:4]
     kw = {}
@@ -228,9 +310,9 @@ def v5_case(dense_v5, name, tris, leaf_major, scene, rays, card, roots=None,
         kw = dict(zip(("sdir", "smin_t", "smax_t"), rays[4:]))
     args = (tris, leaf_major, na, nm, roots, org, direction, min_t, max_t)
     got = dense_v5._packet_cuda(*args, **kw)
-    work = {}
-    ref = dense_v5._packet_ref(*args, **kw, work=work)
+    ref = dense_v5._packet_ref(*args, **kw)
     torch.cuda.synchronize()
+    tri_tests, box_tests = v5_need(scene, roots, rays, ref[0], ref[4])
 
     def as_hits(r):
         return {"t": r[0], "u": r[1], "v": r[2], "prim": r[3]}
@@ -239,12 +321,12 @@ def v5_case(dense_v5, name, tris, leaf_major, scene, rays, card, roots=None,
     ms = cuda_ms(lambda: dense_v5._packet_cuda(*args, **kw))
     plain = cuda_ms(lambda: dense_v5._packet_ref(*args, **kw),
                     reps=plain_reps, warmup=1)
-    ops = OPS_TRI * work["tri_tests"] + OPS_BOX * work["box_tests"]
+    ops = OPS_TRI * tri_tests + OPS_BOX * box_tests
     b_ms, b_by = bound(nbytes(tris, na, nm, *rays, *got[:4]), ops)
     print(f"{name}: N={org.shape[0]} hits={int((ref[3] >= 0).sum())} "
           f"max|dt|={err:.3g}; kernel {ms:.4f} ms, plain walk {plain:.4f} ms,"
-          f" bound {b_ms:.4f} ms ({b_by}; {work['tri_tests']} ray-triangle "
-          f"and {work['box_tests']} ray-box tests) ({card})")
+          f" bound {b_ms:.4f} ms ({b_by}; {tri_tests} ray-triangle and "
+          f"{box_tests} ray-box tests needed) ({card})")
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err)
 
@@ -259,7 +341,7 @@ def v5_phase(dense_v5, mid, large, mid_rays, large_rays, card):
                          False, mid, single, card)}
     args = (mid["dense_tris_v4"], mid["v5_node_aabb"], mid["v5_node_meta"])
     anyh = dense_v5.dense_trace_v5(*args, *single, any_hit=True)
-    ref = dense_v5.dense_trace_v5(*args, *single, plain=True)
+    ref = dense_v5.dense_trace_v5_ref(*args, *single)
     if not torch.equal(anyh["prim"] >= 0, ref["prim"] >= 0):
         raise AssertionError("dense_v5 any-hit: hit mask differs")
     print("dense_v5 any-hit: hit mask equal to the closest hit's")
@@ -277,21 +359,31 @@ def v5_phase(dense_v5, mid, large, mid_rays, large_rays, card):
     s_args = (tris, large["v5_node_aabb"], large["v5_node_meta"], sub,
               large["v5s_aabb"], *ldual[:4])
     got = dense_v5.dense_trace_v5s(*s_args)
-    ref = dense_v5.dense_trace_v5s(*s_args, plain=True)
+    ref = v5s_over_plain_v5l(dense_v5, s_args)
     torch.cuda.synchronize()
     err = check_hits("dense_v5s", got, ref)
     anyh = dense_v5.dense_trace_v5s(*s_args, any_hit=True)
     if not torch.equal(anyh["prim"] >= 0, ref["prim"] >= 0):
         raise AssertionError("dense_v5s any-hit: hit mask differs")
     total = cuda_ms(lambda: dense_v5.dense_trace_v5s(*s_args), reps=10)
-    plain = cuda_ms(lambda: dense_v5.dense_trace_v5s(*s_args, plain=True),
-                    reps=1, warmup=1)
+    plain = cuda_ms(lambda: v5s_over_plain_v5l(dense_v5, s_args), reps=1,
+                    warmup=1)
     kernel_ms = v5s_kernel_share(dense_v5, s_args)
     print(f"dense_v5s N={N_DUAL}: max|dt|={err:.3g}, any-hit mask equal; "
           f"{total:.4f} ms a call (v5l inside: {kernel_ms:.4f} ms in "
           f"its launches, {total - kernel_ms:.4f} ms scheduling ops), "
           f"{plain:.4f} ms over the plain v5l ({card})")
     return rec
+
+
+def v5s_over_plain_v5l(dense_v5, s_args):
+    """dense_trace_v5s with the plain v5l walk in place of the kernel."""
+    kernel = dense_v5.dense_trace_v5l
+    dense_v5.dense_trace_v5l = dense_v5.dense_trace_v5l_ref
+    try:
+        return dense_v5.dense_trace_v5s(*s_args)
+    finally:
+        dense_v5.dense_trace_v5l = kernel
 
 
 def v5s_kernel_share(dense_v5, s_args, reps=10):

@@ -3,10 +3,11 @@ of pbrlab_tpu.geometry.native).
 
 The library is compiled at first use with the host C++ compiler, with the
 JAX package's flags (`c++ -O3 -march=native -shared -fPIC`), into
-`build/`; its name carries a hash of the source and flags, so a stale
-build is never loaded. A failed compile raises: the numpy build gives a
-different tree, so falling back would silently change every slot id of a
-large scene.
+`build/`; its name carries a hash of the source, the flags and the ISA
+macros the compiler enables for this host's CPU, so neither a stale build
+nor one made on another CPU is loaded. A failed compile raises: the
+numpy build gives a different tree, so falling back would silently change
+every slot id of a large scene.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
+CXX = "c++"
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "bvh_builder.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -26,18 +28,26 @@ _LOCK = threading.Lock()
 _LIB = None
 
 
+def _host_isa() -> bytes:
+    """The predefined macros of `CXX -march=native` on this host (__AVX2__,
+    __AVX512F__, ...): what the library may execute."""
+    proc = subprocess.run([CXX, "-march=native", "-dM", "-E", "-x", "c++",
+                           "-"], input="", capture_output=True, text=True,
+                          timeout=60)
+    return proc.stdout.encode()
+
+
 def build_library() -> Path:
-    """Compile csrc/bvh_builder.cpp into build/ (once per source and flag
-    set) and return the library's path."""
-    tag = hashlib.sha256(_SRC.read_bytes()
-                         + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    """Compile csrc/bvh_builder.cpp into build/ (once per source, flag set
+    and host ISA) and return the library's path."""
+    tag = hashlib.sha256(_SRC.read_bytes() + " ".join(CXX_FLAGS).encode()
+                         + _host_isa()).hexdigest()[:16]
     out = _BUILD_DIR / f"libbvh_builder_{tag}.so"
     if not out.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [os.environ.get("CXX", "c++"), *CXX_FLAGS, str(_SRC), "-o",
-             str(tmp)], capture_output=True, text=True, timeout=300)
+        proc = subprocess.run([CXX, *CXX_FLAGS, str(_SRC), "-o", str(tmp)],
+                              capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             raise RuntimeError(f"c++ failed on {_SRC}:\n{proc.stderr}")
         os.replace(tmp, out)

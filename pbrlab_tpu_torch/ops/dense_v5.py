@@ -22,9 +22,10 @@ child first, and a popped node is skipped once every ray's best t beats
 its entry t. `_packet_ref` is the plain torch version: every group walks
 its own stack in lock-step over the groups, one node per step. Each
 wrapper takes the kernel for CUDA tensors and `_packet_ref` for CPU
-tensors; with plain=True it runs `_packet_ref` on any device, which is
-what the kernels are compared with on the card. `LAUNCHES` counts kernel
-launches per kernel.
+tensors; `dense_trace_v5_ref`, `dense_trace_v5_dual_ref` and
+`dense_trace_v5l_ref` run `_packet_ref` on any device, which is what the
+kernels are compared with on the card. `LAUNCHES` counts kernel launches
+per kernel.
 
 Contract (as the JAX package): rays (org, direction, min_t, max_t) are
 float32, max_t < min_t marks a dead lane; results are t, u, v (float32)
@@ -101,13 +102,12 @@ def _leaf_rows(tris, leaf_major, base):
 
 def _packet_ref(tris, leaf_major, node_aabb, node_meta, roots, org,
                 direction, min_t, max_t, any_hit=False, sdir=None,
-                smin_t=None, smax_t=None, work=None):
+                smin_t=None, smax_t=None):
     """Plain torch version of the three kernels: each group walks its
     stack as the Pallas body does, all groups in lock-step, one popped node
     per step (a group whose stack is empty idles). Rays are whole groups.
     Returns (t, u, v, prim, occluded or None); t = max_t where nothing was
-    hit. A `work` dict gets the walk's ray-triangle and ray-box tests of
-    live queries added under "tri_tests" and "box_tests"."""
+    hit."""
     g = org.shape[0] // GROUP
     dev = org.device
     c = _Lanes(org, direction, min_t, g)
@@ -131,12 +131,6 @@ def _packet_ref(tris, leaf_major, node_aabb, node_meta, roots, org,
         stk_id[:, 0] = roots
     stk_tn[:, 0] = -1e30
     sp = (gmax >= 0.0).to(torch.int64)
-    if work is not None:  # live queries per group
-        n_live = (maxt >= c.mint).sum(dim=1)
-        if sdir is not None:
-            n_live = n_live + (~s_dead).sum(dim=1)
-        work.setdefault("tri_tests", 0)
-        work.setdefault("box_tests", 0)
     while bool((sp > 0).any()):
         act = sp > 0
         sp = sp - act.to(torch.int64)
@@ -146,9 +140,6 @@ def _packet_ref(tris, leaf_major, node_aabb, node_meta, roots, org,
         right = node_meta[0][node].to(torch.int64)
         leaf = live & (right < 0)
         inner = live & (right >= 0)
-        if work is not None:
-            work["tri_tests"] += CLUSTER * int((leaf * n_live).sum())
-            work["box_tests"] += 2 * int((inner * n_live).sum())
         if bool(leaf.any()):
             base = node_meta[1][node].clamp(min=0).to(torch.int64)
             (nx, ny, nz, k0, b1x, b1y, b1z, c1,
@@ -307,38 +298,57 @@ def _trace(tris, leaf_major, node_aabb, node_meta, org, direction, min_t,
 
 
 def dense_trace_v5(packed_tris, node_aabb, node_meta, org, direction, min_t,
-                   max_t, any_hit=False, plain=False):
+                   max_t, any_hit=False):
     """Closest (or any) hit per lane over the attr-major [12, S] table ->
-    dict(t, u, v, prim). plain=True runs the plain version on any device."""
+    dict(t, u, v, prim). With any_hit only `prim >= 0` is meaningful."""
     return _trace(packed_tris, False, node_aabb, node_meta, org, direction,
-                  min_t, max_t, any_hit=any_hit, plain=plain)
+                  min_t, max_t, any_hit=any_hit)
 
 
 def dense_trace_v5_dual(packed_tris, node_aabb, node_meta, org, direction,
-                        min_t, max_t, sdir, smin_t, smax_t, plain=False):
+                        min_t, max_t, sdir, smin_t, smax_t):
     """Closest hit + shadow any-hit sharing the origin `org` (deferred
     NEE) in one walk -> (dict(t, u, v, prim), occluded bool)."""
     return _trace(packed_tris, False, node_aabb, node_meta, org, direction,
-                  min_t, max_t, shadow=(sdir, smin_t, smax_t), plain=plain)
+                  min_t, max_t, shadow=(sdir, smin_t, smax_t))
 
 
 def dense_trace_v5l(packed_leaf, node_aabb, node_meta, org, direction,
-                    min_t, max_t, any_hit=False, group_roots=None,
-                    plain=False):
+                    min_t, max_t, any_hit=False, group_roots=None):
     """Closest (or any) hit over the leaf-major [M, 3, 128] table; group g
     (rays [1024 g, 1024 (g + 1))) walks from node group_roots[g] when
     given, else from the root."""
     return _trace(packed_leaf, True, node_aabb, node_meta, org, direction,
+                  min_t, max_t, any_hit=any_hit, group_roots=group_roots)
+
+
+def dense_trace_v5_ref(packed_tris, node_aabb, node_meta, org, direction,
+                       min_t, max_t, any_hit=False):
+    """Plain torch version of `dense_trace_v5` on any device."""
+    return _trace(packed_tris, False, node_aabb, node_meta, org, direction,
+                  min_t, max_t, any_hit=any_hit, plain=True)
+
+
+def dense_trace_v5_dual_ref(packed_tris, node_aabb, node_meta, org,
+                            direction, min_t, max_t, sdir, smin_t, smax_t):
+    """Plain torch version of `dense_trace_v5_dual` on any device."""
+    return _trace(packed_tris, False, node_aabb, node_meta, org, direction,
+                  min_t, max_t, shadow=(sdir, smin_t, smax_t), plain=True)
+
+
+def dense_trace_v5l_ref(packed_leaf, node_aabb, node_meta, org, direction,
+                        min_t, max_t, any_hit=False, group_roots=None):
+    """Plain torch version of `dense_trace_v5l` on any device."""
+    return _trace(packed_leaf, True, node_aabb, node_meta, org, direction,
                   min_t, max_t, any_hit=any_hit, group_roots=group_roots,
-                  plain=plain)
+                  plain=True)
 
 
 def dense_trace_v5s(packed_leaf, node_aabb, node_meta, sub_roots, sub_aabb,
-                    org, direction, min_t, max_t, any_hit=False, passes=1,
-                    plain=False):
+                    org, direction, min_t, max_t, any_hit=False, passes=1):
     """Subtree-scheduled large-scene trace (pbrlab_tpu dense_trace_v5s):
     same contract as dense_trace_v5l; sub_roots/sub_aabb from
-    `build.subtree_cut`. plain=True runs the plain v5l inside.
+    `build.subtree_cut`.
 
     Large scenes with incoherent rays make every 1024-ray group walk much
     of the tree. Each pass restores coherence by schedule: every unresolved
@@ -403,7 +413,7 @@ def dense_trace_v5s(packed_leaf, node_aabb, node_meta, sub_roots, sub_aabb,
         res = dense_trace_v5l(packed_leaf, node_aabb, node_meta, st[:, 0:3],
                               st[:, 3:6], st[:, 6], torch.where(active, bt,
                                                                 -1.0),
-                              any_hit=any_hit, group_roots=groot, plain=plain)
+                              any_hit=any_hit, group_roots=groot)
         upd = active & (res["prim"] >= 0) & (res["t"] < bt)
         st = st.clone()
         st[:, 8] = torch.where(upd, res["t"], bt)

@@ -187,7 +187,7 @@ def test_wrappers_take_plain_walk_on_cpu(scene_np):
     before = dict(dense_v5.LAUNCHES)
     args = _torch(scene_np, V5_KEYS, rays)
     got, occ = dense_v5.dense_trace_v5_dual(*args)
-    ref, ref_occ = dense_v5.dense_trace_v5_dual(*args, plain=True)
+    ref, ref_occ = dense_v5.dense_trace_v5_dual_ref(*args)
     for k in got:
         assert torch.equal(got[k], ref[k])
     assert torch.equal(occ, ref_occ)
@@ -223,10 +223,11 @@ def test_backend_dispatch(scene_np, monkeypatch):
 
 
 @pytest.mark.requires_cuda
-def test_cuda_kernels_match_plain(scene_np):
+def test_cuda_kernels_match_plain(scene_np, monkeypatch):
     """Kernels vs the plain walk on the card: same ops, no FMA
     contraction, IEEE division -> bit-equal closest hits and occlusion;
-    any-hit equal hit masks."""
+    any-hit equal hit masks. dense_trace_v5s is held against itself over
+    the plain v5l."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the dense_v5 kernels are CUDA-only)")
     for n, seed in ((1500, 7), (65536, 8)):
@@ -234,22 +235,31 @@ def test_cuda_kernels_match_plain(scene_np):
         args = _torch(scene_np, V5_KEYS, rays, "cuda")
         before = dict(dense_v5.LAUNCHES)
         got, occ = dense_v5.dense_trace_v5_dual(*args)
-        ref, ref_occ = dense_v5.dense_trace_v5_dual(*args, plain=True)
+        ref, ref_occ = dense_v5.dense_trace_v5_dual_ref(*args)
         torch.cuda.synchronize()
         assert dense_v5.LAUNCHES["v5_dual"] == before["v5_dual"] + 1
         for k in got:
             assert torch.equal(got[k], ref[k]), k
         assert torch.equal(occ, ref_occ)
-        for keys, fn, kw in [
-                (V5_KEYS, dense_v5.dense_trace_v5, {}),
-                (V5L_KEYS, dense_v5.dense_trace_v5l, {}),
-                (V5L_KEYS, dense_v5.dense_trace_v5l, {"group_roots": (
-                    torch.arange((n + 1023) // 1024, device="cuda")
-                    % 3).to(torch.int32)}),
-                (V5S_KEYS, dense_v5.dense_trace_v5s, {"passes": 2})]:
+        def v5s_ref(*a, **kw):
+            with monkeypatch.context() as m:
+                m.setattr(dense_v5, "dense_trace_v5l",
+                          dense_v5.dense_trace_v5l_ref)
+                return dense_v5.dense_trace_v5s(*a, **kw)
+
+        for keys, fn, ref_fn, kw in [
+                (V5_KEYS, dense_v5.dense_trace_v5, dense_v5.dense_trace_v5_ref,
+                 {}),
+                (V5L_KEYS, dense_v5.dense_trace_v5l,
+                 dense_v5.dense_trace_v5l_ref, {}),
+                (V5L_KEYS, dense_v5.dense_trace_v5l,
+                 dense_v5.dense_trace_v5l_ref, {"group_roots": (
+                     torch.arange((n + 1023) // 1024, device="cuda")
+                     % 3).to(torch.int32)}),
+                (V5S_KEYS, dense_v5.dense_trace_v5s, v5s_ref, {"passes": 2})]:
             a = _torch(scene_np, keys, rays[:4], "cuda")
             single = fn(*a, **kw)
-            ref1 = fn(*a, plain=True, **kw)
+            ref1 = ref_fn(*a, **kw)
             anyh = fn(*a, any_hit=True, **kw)
             torch.cuda.synchronize()
             for k in single:

@@ -65,7 +65,7 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
     from pbrlab_tpu_torch.geometry import native
 
     monkeypatch.setattr(native, "_BUILD_DIR", tmp_path)
-    monkeypatch.setenv("CXX", "false")
+    monkeypatch.setattr(native, "CXX", "false")
     with pytest.raises(RuntimeError):
         native.build_library()
 
