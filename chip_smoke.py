@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA library (every csrc/*.cu) and drives its three
+Builds the port's CUDA library (every csrc/*.cu) and drives its four
 render paths on one card:
 
 * cornellbox: `build_demo_scene(subdiv=3)`, dense_v4 (bench.py's headline
@@ -12,13 +12,18 @@ render paths on one card:
 * large: `build_demo_scene(subdiv=5, irregular=True)` (40972 triangles,
   bench.py's large line), the dense_v5s scheduler over dense_v5l,
   512x512, 16 spp;
+* hair: `build_demo_scene(subdiv=3, with_hair=True)`, the cornellbox plus
+  the demo tuft (96 strands, 5376 sub-segments in 42 clusters): dense_v4
+  for the triangles, dense_curve (closest and any-hit) for the hair,
+  512x512, 8 spp;
 
 all at max_steps=12, k_volume=3. Phase 3 checks each kernel against its
-plain torch version at its path's shapes and times both; phase 4 checks
-small renders on the card against the same renders on the CPU; phase 5
-renders each path with every launch counter set to 0 just before and read
-just after. Exits non-zero, printing no result, on any failure or without
-a CUDA card. The last lines are the kernels' JSON record, the card's name
+plain torch version at its path's shapes and times both (dense_curve also
+on a dense tuft of 8192 strands, 3584 clusters); phase 4 checks small
+renders on the card against the same renders on the CPU; phase 5 renders
+each path with every launch counter set to 0 just before and read just
+after. Exits non-zero, printing no result, on any failure or without a
+CUDA card. The last lines are the kernels' JSON record, the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -38,7 +43,10 @@ PATHS = {  # name: (build_demo_scene kwargs, width = height, spp)
     "cornellbox": (dict(subdiv=3), 512, 8),
     "mid": (dict(subdiv=4), 256, 8),
     "large": (dict(subdiv=5, irregular=True), 512, 16),
+    "hair": (dict(subdiv=3, with_hair=True), 512, 8),
 }
+DENSE_TUFT = 8192  # strands of the dense tuft that times dense_curve
+N_PLAIN_TUFT = 4096  # rays the plain walk checks on it (its time bound)
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
 N_SINGLE = 24576  # default volume window (3/8 of the lanes): substeps 2-3
 RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
@@ -46,6 +54,7 @@ RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 OPS_TRI = 40  # f32 operations of one ray-triangle test (csrc/*.cu)
+OPS_RIBBON = 56  # of one ray-ribbon test up to the hit (dense_curve.cu)
 OPS_BOX = 27  # f32 operations of one ray-box slab test
 
 
@@ -413,6 +422,119 @@ def v5s_kernel_share(dense_v5, s_args, reps=10):
     return float(np.median(per_call))
 
 
+def curve_need(aabb, org, direction, min_t, max_t, cap, occluded=None):
+    """(ray-ribbon tests, ray-box tests) these inputs need when each lane
+    walks the clusters alone knowing its answer: every live lane tests the
+    M cluster boxes and the 128 ribbons of every cluster whose box it
+    enters before `cap` (its final t; an any-hit lane its max t, or one
+    cluster where it is occluded)."""
+    from pbrlab_tpu_torch.ops.dense_curve import SEG_BLOCK, _inv
+
+    live = max_t >= min_t
+    inv = [_inv(d) for d in direction.unbind(1)]
+    o = org.unbind(1)
+    entered = torch.zeros_like(min_t, dtype=torch.int64)
+    for c0 in range(0, aabb.shape[1], 256):
+        box = aabb[:, c0:c0 + 256, None]  # [8, k, 1]
+        t0 = [(box[a] - o[a]) * inv[a] for a in range(3)]
+        t1 = [(box[a + 3] - o[a]) * inv[a] for a in range(3)]
+        tnear = torch.maximum(torch.maximum(torch.minimum(t0[0], t1[0]),
+                                            torch.minimum(t0[1], t1[1])),
+                              torch.minimum(t0[2], t1[2]))
+        tfar = torch.minimum(torch.minimum(torch.maximum(t0[0], t1[0]),
+                                           torch.maximum(t0[1], t1[1])),
+                             torch.maximum(t0[2], t1[2]))
+        entered += ((tnear <= tfar * 1.00000024) & (tfar >= min_t)
+                    & (tnear <= cap)).sum(0)
+    if occluded is not None:
+        entered = torch.where(occluded, 1, entered)
+    return (SEG_BLOCK * int(entered[live].sum()),
+            aabb.shape[1] * int(live.sum()))
+
+
+def curve_case(dense_curve, name, segs, aabb, rays, any_hit, card,
+               n_plain=None, plain_reps=3):
+    """dense_curve kernel vs `_walk_ref` (on the first n_plain rays, whole
+    128-lane groups, when given): equal hit masks and sub, t/u/v within
+    RTOL; times and the bound of the tests each lane needs."""
+    from pbrlab_tpu_torch.core.math import INF
+
+    org, direction, min_t, max_t = rays
+    n = org.shape[0]
+    got = dense_curve._walk_cuda(segs, aabb, *rays, any_hit=any_hit)
+    k = n if n_plain is None else n_plain
+    part = [r[:k].contiguous() for r in rays]
+    ref = dense_curve._walk_ref(segs, aabb, *part, any_hit=any_hit)
+    torch.cuda.synchronize()
+    hit = ref[3] >= 0
+    if not torch.equal(got[3][:k], ref[3]):
+        raise AssertionError(f"{name}: sub differs on "
+                             f"{int((got[3][:k] != ref[3]).sum())} lanes")
+    for i, key in enumerate("tuv"):
+        torch.testing.assert_close(got[i][:k][hit], ref[i][hit], rtol=RTOL,
+                                   atol=1e-6, msg=f"{name}: {key} differs")
+    err = float((got[0][:k][hit] - ref[0][hit]).abs().max()) if hit.any() \
+        else 0.0
+    ghit = got[3] >= 0
+    cap = torch.where(ghit, got[0], torch.clamp(max_t, max=INF))
+    tests, boxes = curve_need(aabb, org, direction, min_t, max_t,
+                              max_t if any_hit else cap,
+                              ghit if any_hit else None)
+    ms = cuda_ms(lambda: dense_curve._walk_cuda(segs, aabb, *rays,
+                                                any_hit=any_hit))
+    plain = cuda_ms(lambda: dense_curve._walk_ref(segs, aabb, *part,
+                                                  any_hit=any_hit),
+                    reps=plain_reps, warmup=1)
+    b_ms, b_by = bound(nbytes(segs, aabb, *rays) + 16 * n,
+                       OPS_RIBBON * tests + OPS_BOX * boxes)
+    print(f"{name}: N={n} hits={int(ghit.sum())} (plain on {k}: equal sub, "
+          f"max|dt|={err:.3g}, its groups entered {int(ref[4].sum())} "
+          f"clusters); kernel {ms:.4f} ms, plain walk {plain:.4f} ms on {k} "
+          f"rays, bound {b_ms:.4f} ms ({b_by}; {tests} ray-ribbon and "
+          f"{boxes} ray-box tests needed) ({card})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+
+
+def curve_phase(dense_curve, scene, path_rays_, card):
+    """dense_curve at the hair path's shapes (closest and any-hit at
+    N_DUAL, closest at N_SINGLE) and on a dense tuft of DENSE_TUFT strands
+    (the kernel at N_DUAL, the plain walk on its first N_PLAIN_TUFT)."""
+    from pbrlab_tpu_torch.io.cyhair import make_demo_hair
+    from pbrlab_tpu_torch.ops.curves import flatten_curves
+
+    dual, single = path_rays_
+    segs, aabb = scene["dense_segs"], scene["dense_seg_aabb"]
+    closest = dense_curve.pad_rays(*dual[:4])
+    shadow = dense_curve.pad_rays(dual[0], *dual[4:])
+    rec = {"curve": curve_case(dense_curve, "dense_curve closest", segs, aabb,
+                               closest, False, card)}
+    curve_case(dense_curve, "dense_curve any-hit (shadow rays)", segs, aabb,
+               shadow, True, card)
+    curve_case(dense_curve, "dense_curve closest", segs, aabb,
+               dense_curve.pad_rays(*single), False, card)
+
+    t0 = time.perf_counter()
+    tuft = make_demo_hair(num_strands=DENSE_TUFT, base=(0.0, 1.35, 0.0),
+                          length=0.7)
+    packed, tuft_aabb, _ = dense_curve.pack_segments(flatten_curves(
+        tuft.segment_points()))
+    dev = segs.device
+    packed = torch.from_numpy(packed).to(dev)
+    tuft_aabb = torch.from_numpy(tuft_aabb).to(dev)
+    print(f"dense tuft: {DENSE_TUFT} strands, {tuft.num_segments} segments, "
+          f"{packed.shape[0]} sub-segment rows, {tuft_aabb.shape[1]} "
+          f"clusters, {nbytes(packed) / 1e6:.1f} MB, packed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rec["curve_tuft"] = curve_case(
+        dense_curve, "dense_curve closest, dense tuft", packed, tuft_aabb,
+        closest, False, card, n_plain=N_PLAIN_TUFT, plain_reps=1)
+    curve_case(dense_curve, "dense_curve any-hit, dense tuft", packed,
+               tuft_aabb, shadow, True, card, n_plain=N_PLAIN_TUFT,
+               plain_reps=1)
+    return rec
+
+
 def render_parity(name, scene_np, scene, **kw):
     from pbrlab_tpu_torch.render.integrator import render
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
@@ -438,7 +560,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pbrlab_tpu_torch.ops import cuda_lib, dense_v4, dense_v5
+    from pbrlab_tpu_torch.ops import cuda_lib, dense_curve, dense_v4, dense_v5
     from pbrlab_tpu_torch.render.integrator import render_lanes_wavefront
     from pbrlab_tpu_torch.scene.demo import build_demo_scene
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
@@ -459,7 +581,7 @@ def main():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    # the three paths' scenes (commit on the host, tables to the card)
+    # the four paths' scenes (commit on the host, tables to the card)
     scenes_np, scenes = {}, {}
     for name, (kw, _, _) in PATHS.items():
         t0 = time.perf_counter()
@@ -469,7 +591,9 @@ def main():
         print(f"scene {name} {kw}: {int((s['face_area'] > 0).sum())} "
               f"faces, {s['dense_tris_v4'].shape[1]} slots, "
               f"{s['dense_cluster_aabb_v4'].shape[1]} clusters, "
-              f"{s['v5_node_aabb'].shape[1]} nodes, tables "
+              f"{s['v5_node_aabb'].shape[1]} nodes, "
+              f"{s['dense_seg_aabb'].shape[1]} curve clusters of "
+              f"{s['curve_pts'].shape[0]} segments, tables "
               f"{sorted(k for k in s if k.startswith(('dense_tris', 'v5s')))}"
               f", built in {time.perf_counter() - t0:.2f} s")
 
@@ -479,19 +603,25 @@ def main():
     rec = v4_phase(dense_v4, scenes["cornellbox"], *rays["cornellbox"], card)
     rec.update(v5_phase(dense_v5, scenes["mid"], scenes["large"],
                         rays["mid"], rays["large"], card))
+    rec.update(curve_phase(dense_curve, scenes["hair"], rays["hair"], card))
 
     # phase 4: render parity, card (kernels) vs CPU (plain versions)
     render_parity("cornellbox", scenes_np["cornellbox"], scenes["cornellbox"],
                   width=32, height=32, spp=4, **SETTINGS)
     render_parity("large", scenes_np["large"], scenes["large"], width=32,
                   height=32, spp=2, **SETTINGS)
+    render_parity("hair", scenes_np["hair"], scenes["hair"], width=32,
+                  height=32, spp=2, **SETTINGS)
     print(f"phases 1-4 took {time.perf_counter() - t_start:.1f} s")
 
-    # phase 5: the three paths, each with its launches counted
+    # phase 5: the four paths, each with its launches counted
     expect = {"cornellbox": (("v4", "dual"), ("v4", "single")),
               "mid": (("v5", "v5_dual"), ("v5", "v5")),
-              "large": (("v5", "v5l"),)}
-    counters = {"v4": dense_v4.LAUNCHES, "v5": dense_v5.LAUNCHES}
+              "large": (("v5", "v5l"),),
+              "hair": (("v4", "dual"), ("curve", "closest"),
+                       ("curve", "any_hit"))}
+    counters = {"v4": dense_v4.LAUNCHES, "v5": dense_v5.LAUNCHES,
+                "curve": dense_curve.LAUNCHES}
     launches = {}
     for name, (_, size, spp) in PATHS.items():
         for c in counters.values():
@@ -524,6 +654,7 @@ def main():
     v5_src = "pbrlab_tpu_torch/csrc/dense_v5.cu"
     v4_py = "pbrlab_tpu/ops/pallas/dense_v4.py"
     v5_py = "pbrlab_tpu/ops/pallas/dense_v5.py"
+    hair = launches["hair"]
     rows = [("dense_v4_trace_dual", v4_src, f"{v4_py}:248",
              launches["cornellbox"]["dual"], rec["dual"]),
             ("dense_v4_trace", v4_src, f"{v4_py}:115",
@@ -533,7 +664,10 @@ def main():
             ("dense_v5_trace", v5_src, f"{v5_py}:134",
              launches["mid"]["v5"], rec["v5"]),
             ("dense_v5l_trace", v5_src, f"{v5_py}:646",
-             launches["large"]["v5l"], rec["v5l"])]
+             launches["large"]["v5l"], rec["v5l"]),
+            ("dense_curve_trace", "pbrlab_tpu_torch/csrc/dense_curve.cu",
+             "pbrlab_tpu/ops/pallas/dense_curve.py:103",
+             hair["closest"] + hair["any_hit"], rec["curve"])]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,6 +1,6 @@
-"""Host-side triangle mesh container (numpy; port of
-pbrlab_tpu.geometry.mesh, reference mesh/triangle-mesh.h:15-60). The hair
-curve container is not ported yet (ROADMAP A11)."""
+"""Host-side mesh containers (numpy; port of pbrlab_tpu.geometry.mesh):
+triangle meshes (reference mesh/triangle-mesh.h:15-60) and cubic Bezier
+hair curves (mesh/cubic-bezier-curve-mesh.h:12-34)."""
 from __future__ import annotations
 
 import dataclasses
@@ -51,3 +51,40 @@ class TriangleMesh:
     @property
     def num_faces(self) -> int:
         return int(self.faces.shape[0])
+
+
+@dataclasses.dataclass
+class CubicBezierCurveMesh:
+    """Cubic Bezier hair curves: float4 control points (xyz + thickness).
+
+    vertices_thickness [P, 4] packed control points, indices [S] start
+    index of each 4-point segment. segment_colors optionally carries
+    per-segment RGB (from a CyHair color block, io/cyhair.py); the scene
+    build surfaces it as a per-strand hair base-color override (the
+    reference parses the block and never consumes it, io/cyhair.cc:105-116).
+    """
+
+    vertices_thickness: np.ndarray  # [P, 4] float32 (xyz + radius)
+    indices: np.ndarray  # [S] int32 first-control-point index per segment
+    material_id: int = 0
+    name: str = ""
+    segment_colors: Optional[np.ndarray] = None  # [S, 3] float32 or None
+
+    def __post_init__(self):
+        self.vertices_thickness = np.ascontiguousarray(
+            self.vertices_thickness, np.float32)
+        self.indices = np.ascontiguousarray(self.indices, np.int32)
+        if self.segment_colors is not None:
+            self.segment_colors = np.ascontiguousarray(
+                self.segment_colors, np.float32)
+            if self.segment_colors.shape != (self.indices.shape[0], 3):
+                raise ValueError("segment_colors must be [S, 3]")
+
+    @property
+    def num_segments(self) -> int:
+        return int(self.indices.shape[0])
+
+    def segment_points(self) -> np.ndarray:
+        """[S, 4, 4] per-segment control points (xyz + radius)."""
+        idx = self.indices[:, None] + np.arange(4)[None, :]
+        return self.vertices_thickness[idx]

@@ -1,17 +1,26 @@
 """Ray-scene intersection dispatch (port of pbrlab_tpu.ops.intersect).
 
 Replaces the reference's rtcIntersect1 / rtcOccluded1
-(raytracer_impl.cc:268-287). Rays are SoA lanes [N, ...]; hits are
-dict(t, u, v, prim) with prim the scene's slot (= face) id, -1 on a miss,
-and Embree's barycentric convention P = (1-u-v)v0 + u v1 + v v2.
+(raytracer_impl.cc:268-287) over the scene's triangles AND hair curves.
+Rays are SoA lanes [N, ...]; hits are dict(t, u, v, prim, seg, is_curve,
+tangent): prim the triangle slot (= face) id, seg the Bezier segment id,
+each -1 where the other (or nothing) was hit, with Embree's barycentric
+convention P = (1-u-v)v0 + u v1 + v v2 on triangles and, on curves, u the
+curve parameter, v the signed ribbon offset and tangent the sub-segment's
+unit direction.
 
 The triangle backend is the JAX package's choice on its accelerators:
 dense_v5s past 18000 slots (the commit then adds the v5s tables), dense_v4
-up to 256 clusters, dense_v5 between. Hair and instancing raise: their
-kernels are not ported yet.
+up to 256 clusters, dense_v5 between. Curves always go through
+dense_curve, which has no dual kernel: a step of a hair scene launches its
+closest and its any-hit query. Instancing raises: its kernel is not ported
+yet.
 """
 from __future__ import annotations
 
+import torch
+
+from .dense_curve import dense_curve_trace
 from .dense_v4 import dense_trace_v4, dense_trace_v4_dual
 from .dense_v5 import (dense_trace_v5, dense_trace_v5_dual, dense_trace_v5l,
                        dense_trace_v5s)
@@ -22,10 +31,6 @@ MAX_DENSE4_CLUSTERS = 256
 def _tri_backend(scene) -> str:
     """The triangle backend for a committed scene: "dense5s", "dense5l",
     "dense4" or "dense5"."""
-    if scene.get("curve_pts") is not None and scene["curve_pts"].shape[0]:
-        raise NotImplementedError(
-            "hair curves need the dense_curve kernel, not ported yet "
-            "(ROADMAP A11, B7)")
     if "i5_tris" in scene or "iface_material" in scene:
         raise NotImplementedError(
             "instanced scenes need the dense_v5i kernel, not ported yet "
@@ -68,35 +73,94 @@ def _closest(scene, backend, org, direction, min_t, max_t, any_hit=False):
     raise ValueError(f"unknown triangle backend {backend!r}")
 
 
+def has_curves(scene) -> bool:
+    """Whether the committed scene holds hair (a host-side shape test)."""
+    return int(scene["curve_pts"].shape[0]) > 0
+
+
+def _closest_curve(scene, org, direction, min_t, max_t):
+    """Hair closest hit -> dict(t, u, v, seg, tangent); the sorted
+    sub-segment id maps to its source segment and tangent through one
+    curve_sub_fat row."""
+    res = dense_curve_trace(scene["dense_segs"], scene["dense_seg_aabb"],
+                            org, direction, min_t, max_t)
+    sub = res["sub"]
+    fat = scene["curve_sub_fat"][torch.clamp(sub, min=0).to(torch.int64)]
+    return {"t": res["t"], "u": res["u"], "v": res["v"],
+            "seg": torch.where(sub >= 0, fat[:, 3].to(torch.int32), -1),
+            "tangent": fat[:, 0:3]}
+
+
+def _occluded_curve(scene, org, direction, min_t, max_t):
+    return dense_curve_trace(scene["dense_segs"], scene["dense_seg_aabb"],
+                             org, direction, min_t, max_t,
+                             any_hit=True)["sub"] >= 0
+
+
+def _merge(scene, tri, org, direction, min_t, max_t):
+    """The triangle hit merged with the closest curve hit: the curve wins
+    where it hit and is strictly closer."""
+    n = org.shape[0]
+    if not has_curves(scene):
+        return {**tri, "seg": torch.full((n,), -1, dtype=torch.int32,
+                                         device=org.device),
+                "is_curve": torch.zeros((n,), dtype=torch.bool,
+                                        device=org.device),
+                "tangent": torch.zeros((n, 3), device=org.device)}
+    cur = _closest_curve(scene, org, direction, min_t, max_t)
+    curve_closer = (cur["seg"] >= 0) & (cur["t"] < tri["t"])
+    return {
+        "t": torch.where(curve_closer, cur["t"], tri["t"]),
+        "u": torch.where(curve_closer, cur["u"], tri["u"]),
+        "v": torch.where(curve_closer, cur["v"], tri["v"]),
+        "prim": torch.where(curve_closer, -1, tri["prim"]),
+        "seg": torch.where(curve_closer, cur["seg"], -1),
+        "is_curve": curve_closer,
+        "tangent": cur["tangent"],
+    }
+
+
 def trace_scene(scene, org, direction, min_t, max_t, backend=None):
-    """Closest hit over the scene's triangles -> dict(t, u, v, prim).
-    backend overrides the scene's choice (see `sparse_backend`)."""
-    return _closest(scene, backend or _tri_backend(scene), org, direction,
-                    min_t, max_t)
+    """Closest hit over the scene's triangles and curves -> dict(t, u, v,
+    prim, seg, is_curve, tangent). backend overrides the scene's triangle
+    choice (see `sparse_backend`)."""
+    tri = _closest(scene, backend or _tri_backend(scene), org, direction,
+                   min_t, max_t)
+    return _merge(scene, tri, org, direction, min_t, max_t)
 
 
 def occluded_scene(scene, org, direction, min_t, max_t, backend=None):
-    """Shadow any-hit -> bool per lane (rtcOccluded1)."""
-    return _closest(scene, backend or _tri_backend(scene), org, direction,
-                    min_t, max_t, any_hit=True)["prim"] >= 0
+    """Shadow any-hit over triangles and curves -> bool per lane
+    (rtcOccluded1)."""
+    occ = _closest(scene, backend or _tri_backend(scene), org, direction,
+                   min_t, max_t, any_hit=True)["prim"] >= 0
+    if has_curves(scene):
+        occ = occ | _occluded_curve(scene, org, direction, min_t, max_t)
+    return occ
 
 
 def trace_scene_dual(scene, org, direction, min_t, max_t, sdir, smin_t,
                      smax_t, backend=None):
     """Closest hit + shadow any-hit sharing the origin (the deferred-NEE
-    step) -> (trace_scene dict, occluded bool): one dual-kernel launch for
-    dense4 and dense5, two launches (closest, then shadow) for the
-    large-scene backends, which have no dual kernel."""
+    step) -> (trace_scene dict, occluded bool). Triangles: one dual-kernel
+    launch for dense4 and dense5, two launches (closest, then shadow) for
+    the large-scene backends, which have no dual kernel. Curves: a closest
+    and an any-hit dense_curve launch."""
     backend = backend or _tri_backend(scene)
     if backend == "dense4":
-        return dense_trace_v4_dual(scene["dense_tris_v4"],
-                                   scene["dense_cluster_aabb_v4"],
-                                   org, direction, min_t, max_t,
-                                   sdir, smin_t, smax_t)
-    if backend == "dense5":
-        return dense_trace_v5_dual(scene["dense_tris_v4"],
-                                   scene["v5_node_aabb"],
-                                   scene["v5_node_meta"], org, direction,
-                                   min_t, max_t, sdir, smin_t, smax_t)
-    return (trace_scene(scene, org, direction, min_t, max_t, backend),
-            occluded_scene(scene, org, sdir, smin_t, smax_t, backend))
+        tri, occ = dense_trace_v4_dual(scene["dense_tris_v4"],
+                                       scene["dense_cluster_aabb_v4"],
+                                       org, direction, min_t, max_t,
+                                       sdir, smin_t, smax_t)
+    elif backend == "dense5":
+        tri, occ = dense_trace_v5_dual(scene["dense_tris_v4"],
+                                       scene["v5_node_aabb"],
+                                       scene["v5_node_meta"], org, direction,
+                                       min_t, max_t, sdir, smin_t, smax_t)
+    else:
+        tri = _closest(scene, backend, org, direction, min_t, max_t)
+        occ = _closest(scene, backend, org, sdir, smin_t, smax_t,
+                       any_hit=True)["prim"] >= 0
+    if has_curves(scene):
+        occ = occ | _occluded_curve(scene, org, sdir, smin_t, smax_t)
+    return _merge(scene, tri, org, direction, min_t, max_t), occ

@@ -15,9 +15,14 @@ here. The loop test and the volume-window test read a device value, one
 host sync each per trip. Everything runs under `torch.no_grad()`: the
 render is forward-only, as the JAX package stop-gradients every trace.
 
+Hair: a lane whose closest hit is a curve with a hair material shades in
+the hair frame (tangent, ribbon offset h) with the Principled Hair BSDF
+(`shading/hair.py`): NEE without the hemisphere test, 4 closure draws, no
+SSS entry.
+
 Not in this slice: the differentiable scan path (`render_lanes`,
-`render_scan`), hair, textures, instancing, sharding, and the JAX
-package's PBRLAB_* environment knobs (ROADMAP A9-A16).
+`render_scan`), textures, instancing, sharding, and the JAX package's
+PBRLAB_* environment knobs (ROADMAP A9-A16).
 """
 from __future__ import annotations
 
@@ -32,11 +37,12 @@ from ..core.onb import branchless_onb, to_global, to_local
 from ..core.sampling import (cosine_sample_hemisphere, power_heuristic_weight,
                              uniform_sample_sphere)
 from ..ops.dense_v4 import slab_interval
-from ..ops.intersect import sparse_backend, trace_scene, trace_scene_dual
+from ..ops.intersect import (has_curves, sparse_backend, trace_scene,
+                             trace_scene_dual)
 from ..scene.lights import sample_all_light
-from ..scene.materials import unpack_material_rows
+from ..scene.materials import KIND_HAIR, unpack_material_rows
 from ..scene.scene import build_fat_tables
-from ..shading import principled
+from ..shading import hair, principled
 from ..shading.principled import PrincipledBsdf
 from ..shading.sss import sample_scatter_distance, scattering_coefficients
 from .camera import generate_rays
@@ -177,11 +183,16 @@ def _fetch_colors(scene, mat):
 
 
 def _nee(scene, pos, geom_normal, omega_out_local, ex, ey, ez,
-         bsdf: PrincipledBsdf, u0, u1, u2, shade_mask):
+         bsdf: PrincipledBsdf, hair_b, is_hair, u0, u1, u2, shade_mask):
     """Deferred next-event estimation (DirectIllumination,
     shader-utils.h:166-212) without the trace: returns
     (contribution if unoccluded, shadow direction, shadow max t, -1 where
-    there is no query). The next step's trace launch answers the query."""
+    there is no query). The next step's trace launch answers the query.
+
+    geom_normal is the flipped shading normal ez on principled lanes, the
+    curve tangent on hair lanes (hair-shader.cc:190). Hair lanes (is_hair;
+    hair_b None in a hair-free scene) skip the hemisphere test (:199) and
+    divide f*cos by |omega_l.x| (:196-198)."""
     light = sample_all_light(scene, u0, u1, u2)
     to_light = light.position - pos
     dist = torch.sqrt(torch.clamp(vdot(to_light, to_light), min=1e-12))
@@ -192,11 +203,19 @@ def _nee(scene, pos, geom_normal, omega_out_local, ex, ey, ez,
     pdf_sigma = torch.clamp(torch.abs(
         light.pdf * dist * dist
         / torch.where(torch.abs(denom) > 1e-12, denom, 1e-12)), max=1e30)
-    candidate = (shade_mask & light.valid & (wl_dot_nl > 0.0)
-                 & (wl_dot_np > 0.0) & (pdf_sigma > 0.0))
+    hemisphere_ok = (wl_dot_nl > 0.0) & (wl_dot_np > 0.0)
+    if hair_b is not None:
+        hemisphere_ok = hemisphere_ok | is_hair
+    candidate = shade_mask & light.valid & hemisphere_ok & (pdf_sigma > 0.0)
     shadow_max = torch.clamp(dist - EPS, min=EPS)
-    f, pdf_b = principled.eval_bsdf(to_local(wl, ex, ey, ez),
-                                    omega_out_local, bsdf)
+    omega_l = to_local(wl, ex, ey, ez)
+    f, pdf_b = principled.eval_bsdf(omega_l, omega_out_local, bsdf)
+    if hair_b is not None:
+        fh_cos, pdf_h = hair.eval_cos_pdf(omega_l, omega_out_local, hair_b)
+        fh = fh_cos / torch.clamp(torch.abs(omega_l[..., 0]),
+                                  min=1e-12)[..., None]
+        f = torch.where(is_hair[..., None], fh, f)
+        pdf_b = torch.where(is_hair, pdf_h, pdf_b)
     w = power_heuristic_weight(pdf_sigma, pdf_b)
     contrib = f * light.emission * (w / torch.clamp(pdf_sigma, min=1e-12))[..., None]
     contrib = torch.where(
@@ -265,15 +284,29 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
         hit = trace_scene(scene, state.org, direction, min_t, max_t,
                           backend=backend)
     prim = hit["prim"]
-    hit_ok = prim >= 0
+    is_curve = hit["is_curve"]
+    hit_ok = (prim >= 0) | is_curve
     t_eff = torch.where(volume_mode & ~hit_ok, t_scatter, hit["t"])
     # missed surface lanes carry t = INF; shade them at a finite dummy t
     t_shade = torch.where(hit_ok | volume_mode, t_eff, 1.0)
     pos = state.org + t_shade[..., None] * direction
     frow = scene["face_fat"][torch.clamp(prim, min=0).to(torch.int64)]
     ng, ns, _uv = _surface_attribs(frow, hit["u"], hit["v"])
-    face_dir = _classify(direction, ng, ns)
     hit_instance = frow[:, 25].to(torch.int32)
+    mat_id = frow[:, 20].to(torch.int32)
+    with_hair = has_curves(scene)
+    if with_hair:
+        # a curve hit delivers its tangent through the normal slots
+        # (scene.cc:222-224, hair-shader.cc:165); instance and material
+        # come from the segment's columns
+        ic = is_curve[..., None]
+        ng = torch.where(ic, hit["tangent"], ng)
+        ns = torch.where(ic, hit["tangent"], ns)
+        seg = torch.clamp(hit["seg"], min=0).to(torch.int64)
+        hit_instance = torch.where(is_curve, scene["curve_instance"][seg],
+                                   hit_instance)
+        mat_id = torch.where(is_curve, scene["curve_material"][seg], mat_id)
+    face_dir = _classify(direction, ng, ns)
 
     alive = state.alive
     throughput = state.throughput
@@ -288,7 +321,8 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
                      / torch.where(torch.abs(nsd) > 1e-12, nsd, 1e-12))
     mis_w = torch.where(state.first, 1.0,
                         power_heuristic_weight(state.bsdf_pdf, pdf_area * a2sa))
-    add_em = s_alive & hit_ok & (face_dir == FRONT) & (pdf_area > 0.0)
+    add_em = (s_alive & hit_ok & ~is_curve & (face_dir == FRONT)
+              & (pdf_area > 0.0))
     contribution = contribution + torch.where(
         add_em[..., None], mis_w[..., None] * frow[:, 22:25] * throughput, 0.0)
 
@@ -312,8 +346,8 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     sss_tp = torch.where(hit_ok[..., None], sss_tp_hit, sss_tp_scat)
     # a valid exit leaves through a back face of the entry instance
     # (random-walk-sss.h:371-384); any other hit kills the path
-    exit_ok = (v_alive & hit_ok & (hit_instance == state.sss_instance)
-               & (face_dir == BACK))
+    exit_ok = (v_alive & hit_ok & ~is_curve
+               & (hit_instance == state.sss_instance) & (face_dir == BACK))
     v_dead_exit = v_alive & hit_ok & ~exit_ok
     # scatter lanes: volume russian roulette (random-walk-sss.h:349-358)
     v_scatter = v_alive & ~hit_ok
@@ -328,14 +362,27 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     s_dead_amb = s_alive & (face_dir == AMBIGUOUS)
     shade_mask = s_shade | is_exit
 
-    mat = _gather_material(scene, frow[:, 20].to(torch.int32))
-    # frame: ez = front ? ns : -ns (cycles-principled-shader.cc:427-432);
-    # an SSS exit keeps +ns (random-walk-sss.h:386-398)
+    mat = _gather_material(scene, mat_id)
+    hair_lane = is_curve & (mat["kind"] == KIND_HAIR) & s_shade
+    # principled frame: ez = front ? ns : -ns (cycles-principled-shader.cc
+    # :427-432); an SSS exit keeps +ns (random-walk-sss.h:386-398)
     ez = torch.where(is_exit[..., None] | (face_dir == FRONT)[..., None],
                      ns, -ns)
+    geom_normal = ez  # of the NEE terms
     ex, ey = branchless_onb(ez)
-    omega_out = to_local(torch.where(is_exit[..., None], direction, -direction),
-                         ex, ey, ez)
+    omega_out_g = torch.where(is_exit[..., None], direction, -direction)
+    if with_hair:
+        # hair frame: ex = tangent, ey = normalize((wo x ex) x ex),
+        # ez = ex x ey (hair-shader.cc:164-173)
+        ex_h = ns
+        ey_h = vnormalize(torch.linalg.cross(
+            torch.linalg.cross(omega_out_g, ex_h), ex_h))
+        hl = hair_lane[..., None]
+        ex = torch.where(hl, ex_h, ex)
+        ey = torch.where(hl, ey_h, ey)
+        ez = torch.where(hl, torch.linalg.cross(ex_h, ey_h), ez)
+        geom_normal = torch.where(hl, ex_h, geom_normal)
+    omega_out = to_local(omega_out_g, ex, ey, ez)
 
     base_color, sub_color = _fetch_colors(scene, mat)
     bsdf = principled.param_to_bsdf(mat, base_color, sub_color)
@@ -343,28 +390,48 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     bsdf = PrincipledBsdf(*[
         torch.where(is_exit.reshape(is_exit.shape + (1,) * (a.ndim - 1)), b, a)
         for a, b in zip(bsdf, exit_bsdf)])
+    hair_b = None
+    if with_hair:
+        if "curve_color" in scene:
+            # per-strand base color of a CyHair color block (rgb hair
+            # coloring; -1 rows: no file color)
+            ccol = scene["curve_color"][seg]
+            use_c = is_curve & (ccol[:, 0] >= 0.0)
+            mat = {**mat, "hair_base_color": torch.where(
+                use_c[..., None], ccol, mat["hair_base_color"])}
+        hair_b = hair.param_to_bsdf(mat, hit["v"])
 
     # --- NEE: deferred; the shade point is the lane's org until its next
     # trace, so the parked query's implicit origin stays valid ---
     rng_state, un = prng.draw_n(rng_state, 3)
     keep_maxt = torch.where(resolved_now, -1.0, state.nee_maxt)
-    nee_c, wl_nee, smax_nee = _nee(scene, pos, ez, omega_out, ex, ey, ez,
-                                   bsdf, un[0], un[1], un[2], shade_mask)
+    nee_c, wl_nee, smax_nee = _nee(scene, pos, geom_normal, omega_out, ex,
+                                   ey, ez, bsdf, hair_b, hair_lane, un[0],
+                                   un[1], un[2], shade_mask)
     sm = shade_mask[..., None]
     new_nee_dir = torch.where(sm, wl_nee, state.nee_dir)
     new_nee_contrib = torch.where(sm, throughput * nee_c, state.nee_contrib)
     new_nee_maxt = torch.where(shade_mask, smax_nee, keep_maxt)
 
-    # --- closure sampling (3 draws + 1 kept for the stream layout) ---
+    # --- closure sampling (principled: 3 draws, the 4th kept for the
+    # stream layout; hair: 4, hair-shader.cc:207-211) ---
     rng_state, ub = prng.draw_n(rng_state, 4)
     omega_in, f, pdf_b, pick_sss_raw = principled.sample_surface(
         omega_out, bsdf, ub[0], ub[1], ub[2])
-    # SSS entry only from front faces (random-walk-sss.h:236-239)
-    pick_sss = pick_sss_raw & s_shade & (face_dir == FRONT)
-    sss_die = pick_sss_raw & s_shade & (face_dir != FRONT)
+    # SSS entry only from front faces (random-walk-sss.h:236-239), never
+    # from hair
+    pick_sss = pick_sss_raw & s_shade & (face_dir == FRONT) & ~hair_lane
+    sss_die = pick_sss_raw & s_shade & (face_dir != FRONT) & ~hair_lane
 
     factor = f * (torch.abs(omega_in[..., 2])
                   / torch.clamp(pdf_b, min=1e-12))[..., None]
+    if with_hair:
+        wi_h, fh_cos, pdf_h = hair.sample(omega_out, hair_b, *ub)
+        omega_in = torch.where(hl, wi_h, omega_in)
+        # hair throughput is f*cos / pdf with cos folded into f (:225)
+        factor = torch.where(
+            hl, fh_cos / torch.clamp(pdf_h, min=1e-12)[..., None], factor)
+        pdf_b = torch.where(hair_lane, pdf_h, pdf_b)
     bad = ((pdf_b <= 0.0) | ~torch.isfinite(factor).all(-1)
            | ~torch.isfinite(pdf_b))
     cont_surface = shade_mask & ~pick_sss & ~bad

@@ -1,6 +1,7 @@
-"""Procedural demo scene: cornellbox + glossy "suzanne" + SSS "lucy" (port
-of pbrlab_tpu.scene.demo; materials from the reference's
-data/cornellbox_suzanne_lucy.mtl, lights as pc/pc-common.cc:100-191)."""
+"""Procedural demo scene: cornellbox + glossy "suzanne" + SSS "lucy", and
+optionally a hair tuft (port of pbrlab_tpu.scene.demo; materials from the
+reference's data/cornellbox_suzanne_lucy.mtl, lights as
+pc/pc-common.cc:100-191)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -8,6 +9,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from ..geometry.mesh import TriangleMesh
+from ..io.cyhair import make_demo_hair
 from .scene import SceneBuilder, commit
 
 
@@ -98,9 +100,8 @@ def build_demo_scene(with_monkey=True, with_lucy=True, subdiv=3,
                      lambert_only=False, with_hair=False, irregular=False
                      ) -> Tuple[Dict, SceneBuilder]:
     """Returns (committed numpy scene dict, builder). irregular=True
-    noise-displaces the two bodies. Hair is not ported yet (ROADMAP A11)."""
-    if with_hair:
-        raise NotImplementedError("hair is not ported yet (ROADMAP A11)")
+    noise-displaces the two bodies; with_hair adds a 96-strand procedural
+    tuft under the light (672 Bezier segments, Principled Hair BSDF)."""
     b = SceneBuilder()
     m = b.materials
     white = m.add_principled("Wall_White", base_color=(0.8, 0.8, 0.8),
@@ -160,5 +161,11 @@ def build_demo_scene(with_monkey=True, with_lucy=True, subdiv=3,
             lid = b.add_area_light_param((3.0, 3.0, 3.0))
             light_ids = [np.full((mesh.num_faces,), lid, np.int32)]
         b.add_instance([mesh], light_ids=light_ids)
+
+    if with_hair:
+        hair = make_demo_hair(num_strands=96, base=(0.0, 1.35, 0.0),
+                              length=0.7)
+        hair.material_id = m.add_hair("hair")
+        b.add_instance([], curves=[hair])
 
     return commit(b.build()), b

@@ -37,8 +37,8 @@ PRINCIPLED_COLUMNS = [
     ("transmission_roughness", 0.0, 1),
 ]
 
-# Hair BSDF columns (material-param.h:52-72), kept so the table layout is
-# the JAX package's; the hair BSDF itself is not ported yet (ROADMAP A11).
+# Hair BSDF columns (material-param.h:52-72); hair_coloring 0 = RGB,
+# 1 = melanin (shading/hair.py).
 HAIR_COLUMNS = [
     ("hair_coloring", 1, 1),
     ("hair_base_color", (0.18, 0.06, 0.02), 3),
@@ -74,6 +74,18 @@ class MaterialBuilder:
             row[key] = params.pop(key, default)
         if params:
             raise ValueError(f"unknown principled params: {sorted(params)}")
+        self.rows.append(row)
+        self.names.append(name)
+        return len(self.rows) - 1
+
+    def add_hair(self, name: str = "", **params) -> int:
+        """A Principled Hair BSDF material (HairBsdfParameter)."""
+        row = {"kind": KIND_HAIR, "base_color_tex_id": -1,
+               "subsurface_color_tex_id": -1}
+        for key, default, _ in ALL_COLUMNS:
+            row[key] = params.pop(key, default)
+        if params:
+            raise ValueError(f"unknown hair params: {sorted(params)}")
         self.rows.append(row)
         self.names.append(name)
         return len(self.rows) - 1

@@ -5,13 +5,17 @@
 produce the same arrays for the tables the port reads: every triangle
 baked to world space, per-face columns in SAH slot order, the flattened
 light CDF, the dense_v4 / v5 trace tables, the dense_v5l / v5s tables of
-scenes past 18000 slots, and the compaction signature boxes.
+scenes past 18000 slots, the compaction signature boxes, and the hair
+tables of `commit_curves` (sub-segment columns in Morton order, the
+dense_curve rows and cluster boxes, the per-sub-segment tangent rows).
 `scene_from_numpy` moves a committed scene (from either package) to torch
 tensors on a device; `build_fat_tables` packs the per-lane fat rows there.
 
-Not ported yet: hair curves, textures, shared instancing, and the tables
-of the legacy dense v1-v3 and threaded-BVH trace backends (ROADMAP
-A11-A13, B8).
+Not ported yet: textures, shared instancing, and the tables of the legacy
+dense v1-v3 backends (ROADMAP A12, A13, B8). The threaded-BVH tables
+(`bvh_*`, and the curve BVH `cbvh_*` that only the JAX package's CPU
+`curve_trace` reads) are left out: the port's CPU traces are the plain
+versions of its kernels.
 """
 from __future__ import annotations
 
@@ -21,8 +25,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..geometry.mesh import TriangleMesh
+from ..geometry.mesh import CubicBezierCurveMesh, TriangleMesh
 from ..ops.build import build_v5, leaf_major, subtree_cut
+from ..ops.curves import flatten_curves
+from ..ops.dense_curve import pack_segments
 from .materials import MaterialBuilder, pack_material_fat
 
 V5L_MIN_SLOTS = 18000  # commit adds the dense_v5l / v5s tables above this
@@ -53,6 +59,7 @@ def _apply_normal_transform(normals: np.ndarray, m: Optional[np.ndarray]):
 @dataclasses.dataclass
 class _Instance:
     meshes: List[TriangleMesh]
+    curves: List[CubicBezierCurveMesh]
     light_ids: List[Optional[np.ndarray]]  # per mesh: per-face light param id or None
     transform: Optional[np.ndarray]
 
@@ -60,7 +67,8 @@ class _Instance:
 class SceneBuilder:
     """Accumulates meshes/materials/lights, then `build()`s numpy arrays
     (reference Scene API, scene.h:14-111). A local scene is the list of
-    meshes passed to `add_instance`, with an optional 4x4 transform."""
+    meshes (and hair curves) passed to `add_instance`, with an optional
+    4x4 transform."""
 
     def __init__(self):
         self.materials = MaterialBuilder()
@@ -72,11 +80,13 @@ class SceneBuilder:
         return len(self._light_params) - 1
 
     def add_instance(self, meshes: List[TriangleMesh],
+                     curves: Optional[List[CubicBezierCurveMesh]] = None,
                      light_ids: Optional[List[Optional[np.ndarray]]] = None,
                      transform: Optional[np.ndarray] = None) -> int:
         if light_ids is None:
             light_ids = [None] * len(meshes)
-        self._instances.append(_Instance(meshes, light_ids, transform))
+        self._instances.append(_Instance(meshes, curves or [], light_ids,
+                                         transform))
         return len(self._instances) - 1
 
     def build(self) -> Dict[str, np.ndarray]:
@@ -158,8 +168,40 @@ class SceneBuilder:
 
         scene["materials"] = self.materials.build()
 
-        # scene AABB (reference Scene::FetchSceneAABB)
-        allp = V.reshape(-1, 3) if V.size else np.zeros((1, 3), np.float32)
+        # hair: Bezier segments baked to world space, per-segment material
+        # and instance; curve_color only when some mesh carries colors
+        # (-1 rows: no file color, use the material's)
+        curve_pts, curve_mat, curve_inst, curve_col = [], [], [], []
+        any_colors = False
+        for inst_id, inst in enumerate(self._instances):
+            for cm in inst.curves:
+                vt = transform_curve_points(cm.vertices_thickness,
+                                            inst.transform)
+                cm = CubicBezierCurveMesh(
+                    vt, cm.indices, material_id=cm.material_id,
+                    name=cm.name, segment_colors=cm.segment_colors)
+                curve_pts.append(cm.segment_points())
+                curve_mat.append(np.full((cm.num_segments,), cm.material_id,
+                                         np.int32))
+                curve_inst.append(np.full((cm.num_segments,), inst_id,
+                                          np.int32))
+                any_colors |= cm.segment_colors is not None
+                curve_col.append(
+                    cm.segment_colors if cm.segment_colors is not None
+                    else np.full((cm.num_segments, 3), -1.0, np.float32))
+        scene["curve_pts"] = cat(curve_pts, (0, 4, 4), np.float32)
+        scene["curve_material"] = cat(curve_mat, (0,), np.int32)
+        scene["curve_instance"] = cat(curve_inst, (0,), np.int32)
+        if any_colors:
+            scene["curve_color"] = cat(curve_col, (0, 3), np.float32)
+
+        # scene AABB (reference Scene::FetchSceneAABB), curves by their
+        # control points padded by the radius
+        pts = [V.reshape(-1, 3)] if V.size else []
+        if scene["curve_pts"].size:
+            cp = scene["curve_pts"].reshape(-1, 4)
+            pts += [cp[:, :3] - cp[:, 3:4], cp[:, :3] + cp[:, 3:4]]
+        allp = np.concatenate(pts) if pts else np.zeros((1, 3), np.float32)
         scene["aabb_min"] = allp.min(axis=0).astype(np.float32)
         scene["aabb_max"] = allp.max(axis=0).astype(np.float32)
         return scene
@@ -214,7 +256,50 @@ def commit(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         roots, sub_aabb = subtree_cut(node_aabb5, node_meta5, max_nodes=64)
         scene["v5s_roots"] = roots
         scene["v5s_aabb"] = sub_aabb
+    return commit_curves(scene)
+
+
+def commit_curves(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Hair tables: flatten the Bezier segments into linear sub-segments
+    and Morton-order them for the dense_curve trace (reference: hair goes
+    into the local scenes like triangles, raytracer_impl.cc:154-197).
+
+    Adds the sub-segment columns curve_p0, p1, r0, r1, seg, u0, u1 in the
+    sorted order, dense_segs [Cpad, 12], dense_seg_aabb [8, M], and
+    curve_sub_fat [C, 4]: unit tangent + source segment id, the one row a
+    curve hit fetches."""
+    scene = dict(scene)
+    flat = flatten_curves(scene["curve_pts"])
+    packed_segs, seg_aabb, seg_order = pack_segments(flat)
+    if seg_order.size:
+        flat = {key: col[seg_order] for key, col in flat.items()}
+    scene.update(flat)
+    scene["dense_segs"] = packed_segs
+    scene["dense_seg_aabb"] = seg_aabb
+    e = flat["curve_p1"] - flat["curve_p0"]
+    elen = np.maximum(np.linalg.norm(e, axis=-1, keepdims=True), 1e-20)
+    scene["curve_sub_fat"] = np.concatenate(
+        [e / elen, flat["curve_seg"][:, None].astype(np.float32)],
+        axis=1).astype(np.float32)
     return scene
+
+
+def transform_curve_points(vt: np.ndarray, m: Optional[np.ndarray]):
+    """Bake curve control points [P, 4] (xyz + radius) through a 4x4.
+
+    The reference traces curves in local space under the instance
+    transform (raytracer_impl.cc:154-197, :49-84); the affine image of the
+    control points is the transformed curve. Radii scale by the mean
+    singular value of the linear part: exact for uniform scale and
+    rotation (a flat curve's radius under non-uniform scale is not defined
+    in the reference either)."""
+    if m is None:
+        return vt
+    m = np.asarray(m, np.float64)
+    out = np.asarray(vt, np.float32).copy()
+    out[:, :3] = (out[:, :3] @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
+    out[:, 3] *= float(np.mean(np.linalg.svd(m[:3, :3], compute_uv=False)))
+    return out
 
 
 def scene_from_numpy(scene_np: Dict, device) -> Dict:

@@ -5,10 +5,13 @@ busy time and idle share, and the device time by kernel.
 
 --path picks the scene of one of chip_smoke.py's paths (cornellbox:
 subdiv=3, dense_v4; mid: subdiv=4, dense_v5; large: subdiv=5 irregular,
-dense_v5s/v5l); the render runs at max_steps=12, k_volume=3, seed 7. The
+dense_v5s/v5l; hair: subdiv=3 with the demo tuft, dense_v4 and
+dense_curve); the render runs at max_steps=12, k_volume=3, seed 7. The
 render is timed unprofiled first (host clock around work that ends in a
 synchronize), then once under torch.profiler; the idle share is
-1 - device busy / unprofiled wall. Fails without a CUDA device.
+1 - device busy / unprofiled wall. The trace kernels' device time is
+printed in all and, for the hair path, the dense_curve kernel's alone.
+Fails without a CUDA device.
 """
 from __future__ import annotations
 
@@ -21,8 +24,10 @@ import time
 import torch
 
 SCENES = {"cornellbox": dict(subdiv=3), "mid": dict(subdiv=4),
-          "large": dict(subdiv=5, irregular=True)}
-OWN = ("v5_kernel", "trace_kernel", "trace_dual_kernel")  # csrc/*.cu
+          "large": dict(subdiv=5, irregular=True),
+          "hair": dict(subdiv=3, with_hair=True)}
+CURVE = "curve_kernel"  # csrc/dense_curve.cu
+OWN = ("v5_kernel", "trace_kernel", "trace_dual_kernel", CURVE)  # csrc/*.cu
 
 
 def main():
@@ -68,12 +73,15 @@ def main():
     count = sum(e.count for e in kernels)
     own = [e for e in kernels if any(k in e.key for k in OWN)]
     own_s = sum(e.self_device_time_total for e in own) / 1e6
+    curve_s = sum(e.self_device_time_total for e in own
+                  if CURVE in e.key) / 1e6
     print(f"{args.path} {args.size}x{args.size}x{args.spp}: {iters} "
           f"sub-iterations; wall {wall:.3f} s unprofiled, {prof_wall:.3f} s "
           f"profiled; {count} device kernels ({count / iters:.0f} per "
           f"sub-iteration), device busy {busy:.3f} s, idle share "
           f"{1 - busy / wall:.3f}; trace kernels {own_s:.3f} s "
-          f"({own_s / busy * 100:.1f}% of busy) ({card})")
+          f"({own_s / busy * 100:.1f}% of busy), of which dense_curve "
+          f"{curve_s:.3f} s ({curve_s / busy * 100:.1f}% of busy) ({card})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e6:9.4f} s {e.count:8d}x "
               f"{e.key[:90]}")

@@ -22,6 +22,10 @@
     dense_v5 where the windowed ones use dense_v4), the default and window
     off give equal images.
 (d) Two renders give the same bits.
+(e) Hair: a full step and a first substep of the hair golden scene in the
+    band of (a), JAX's curves through its interpret-mode dense_curve; the
+    render against the hair golden in the wider band its test measures
+    (that golden went through JAX's curve BVH walk, ROADMAP C7).
 """
 from functools import partial
 
@@ -184,6 +188,76 @@ def test_step_matches_jax_on_v5_backends(scenes, jax_dense4, monkeypatch,
     _assert_state_close(got, want)
 
 
+HAIR_SCENE = dict(subdiv=1, with_monkey=False, with_lucy=False,
+                  with_hair=True)  # tests/test_goldens.py:43-47
+
+
+@pytest.fixture(scope="module")
+def hair_scenes():
+    """The hair golden scene (walls, light, the 96-strand tuft): the JAX
+    package's commit, handed to both packages."""
+    scene_np, _ = jbuild_demo_scene(**HAIR_SCENE)
+    return (jbuild_fat_tables(scene_to_device(scene_np)),
+            build_fat_tables(scene_from_numpy(scene_np, "cpu")))
+
+
+@pytest.mark.parametrize("kind", ["full", "first-substep"])
+def test_hair_step_matches_jax(hair_scenes, jax_dense4, kind):
+    """A full step and a first substep of the hair scene, from the state
+    after two JAX steps: the triangles through dense_v4, the curves
+    through dense_curve (JAX interprets it on the CPU whenever its
+    triangle backend is a dense one), hair lanes shaded with the
+    Principled Hair BSDF. Same band as the triangle steps."""
+    scene_j, scene_t = hair_scenes
+    state = _jax_state_after(scene_j, 2)
+    assert int(np.asarray(state.alive).sum()) > 100
+    want = jint.wavefront_step(scene_j, state, 0, **STEP_KINDS[kind])
+    got = tint.wavefront_step(scene_t, _to_torch(state), **STEP_KINDS[kind])
+    _assert_state_close(got, want)
+
+
+def test_colored_hair_step_matches_jax(hair_scenes, jax_dense4):
+    """The curve_color override (per-strand CyHair colors under RGB
+    coloring, -1 rows keep the material's): the hair scene with colors on
+    every other segment and its material switched to RGB coloring."""
+    scene_j, scene_t = hair_scenes
+    state = _jax_state_after(scene_j, 1)
+    s = scene_t["curve_pts"].shape[0]
+    col = np.random.default_rng(3).random((s, 3)).astype(np.float32)
+    col[1::2] = -1.0
+    hair_mat = int(scene_t["curve_material"][0])
+    coloring = np.asarray(scene_j["materials"]["hair_coloring"]).copy()
+    coloring[hair_mat] = 0
+    jmats = {**scene_j["materials"], "hair_coloring": jnp.asarray(coloring)}
+    tmats = {**scene_t["materials"],
+             "hair_coloring": torch.from_numpy(coloring)}
+    scene_j = jbuild_fat_tables({**scene_j, "materials": jmats,
+                                 "curve_color": jnp.asarray(col)})
+    uncolored = build_fat_tables({**scene_t, "materials": tmats})
+    scene_t = {**uncolored, "curve_color": torch.from_numpy(col)}
+    want = jint.wavefront_step(scene_j, state, 0)
+    got = tint.wavefront_step(scene_t, _to_torch(state))
+    _assert_state_close(got, want)
+    # the colors reach the throughput
+    plain = tint.wavefront_step(uncolored, _to_torch(state))
+    assert not torch.equal(got.throughput, plain.throughput)
+
+
+def test_hair_step_shades_hair_lanes(hair_scenes, jax_dense4):
+    """The first step from the camera hits the tuft on some lanes, and
+    those lanes go on (the hair closure sample is taken, not dropped)."""
+    from pbrlab_tpu_torch.core.math import INF
+    from pbrlab_tpu_torch.ops.intersect import trace_scene
+
+    scene_j, scene_t = hair_scenes
+    state = _to_torch(_jax_state_after(scene_j, 0))
+    hit = trace_scene(scene_t, state.org, state.direction, state.min_t,
+                      torch.full_like(state.min_t, INF))
+    assert int(hit["is_curve"].sum()) > 10
+    got = tint.wavefront_step(scene_t, state)
+    assert bool(got.alive[hit["is_curve"]].any())
+
+
 def _render_port(name, **kw):
     scene_kw, k_volume = GOLDEN_SCENES[name]
     scene = scene_from_numpy(build_demo_scene(**scene_kw)[0], "cpu")
@@ -209,6 +283,23 @@ def test_volume_window_changes_no_pixel():
     imgs = [_render_port("sss", vol_window=vw) for vw in (1, None, W * H)]
     np.testing.assert_array_equal(imgs[0], imgs[1])
     np.testing.assert_array_equal(imgs[2], imgs[1])
+
+
+def test_hair_render_matches_golden():
+    """The hair golden went through the JAX package's CPU curve BVH walk,
+    which disagrees with the dense_curve semantics the port holds on ~1% of
+    grazing lanes, and hair scattering spreads an ulp of a sampled
+    direction over the later bounces. Measured: 98.57% of values within
+    rtol 1e-3/atol 1e-4 and the mean 2.19e-3 relative off the golden (JAX
+    forced onto dense_v4 + dense_curve: 98.44%, 1.25e-3; that JAX render
+    against the golden: 98.83%, 0.94e-3). Band: >= 98% and 5e-3."""
+    scene = scene_from_numpy(build_demo_scene(**HAIR_SCENE)[0], "cpu")
+    img = tint.render(scene, W, H, SPP, seed=SEED, max_steps=6).numpy()
+    golden = np.load(GOLDEN_PATH)["hair"]
+    assert img.shape == golden.shape == (H, W, 3)
+    assert np.isfinite(img).all() and (img >= 0).all()
+    assert np.isclose(img, golden, rtol=1e-3, atol=1e-4).mean() >= 0.98
+    assert abs(img.mean() - golden.mean()) <= 5e-3 * golden.mean()
 
 
 def test_render_is_deterministic():

@@ -23,6 +23,9 @@ SLICE_KEYS = ("tri_v0", "tri_e1", "tri_e2", "face_ng", "face_area",
               "light_cdf", "light_emission", "aabb_min", "aabb_max",
               "dense_tris_v4", "dense_cluster_aabb_v4", "v5_node_aabb",
               "v5_node_meta", "sig_aabb")
+CURVE_KEYS = ("curve_pts", "curve_material", "curve_instance", "curve_p0",
+              "curve_p1", "curve_r0", "curve_r1", "curve_seg", "curve_u0",
+              "curve_u1", "dense_segs", "dense_seg_aabb", "curve_sub_fat")
 LARGE_KEYS = ("dense_tris_v5l", "v5s_roots", "v5s_aabb")
 
 
@@ -30,20 +33,29 @@ LARGE_KEYS = ("dense_tris_v5l", "v5s_roots", "v5s_aabb")
                                 dict(subdiv=1, lambert_only=True,
                                      irregular=True),
                                 dict(subdiv=4),
-                                dict(subdiv=5, irregular=True)],
+                                dict(subdiv=5, irregular=True),
+                                dict(subdiv=3, with_hair=True)],
                          ids=["subdiv1", "subdiv3", "irregular", "subdiv4",
-                              "large"])
+                              "large", "hair"])
 def test_commit_matches_jax(kw):
     want, _ = jdemo.build_demo_scene(**kw)
     got, _ = tdemo.build_demo_scene(**kw)
     large = [k for k in LARGE_KEYS if k in want]
     assert large == [k for k in LARGE_KEYS if k in got]
-    for key in SLICE_KEYS + tuple(large):
+    for key in SLICE_KEYS + CURVE_KEYS + tuple(large):
         assert got[key].dtype == want[key].dtype, key
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     for key, col in want["materials"].items():
         np.testing.assert_array_equal(got["materials"][key], col,
                                       err_msg=key)
+    assert "curve_color" not in got and "curve_color" not in want
+    if kw.get("with_hair"):  # the hair path: 96 strands, 42 clusters
+        assert got["curve_pts"].shape == (672, 4, 4)
+        assert got["dense_segs"].shape == (5376, 12)
+        assert got["dense_seg_aabb"].shape == (8, 42)
+        assert got["curve_sub_fat"].shape == (5376, 4)
+    else:
+        assert got["curve_pts"].shape == (0, 4, 4)
     if kw["subdiv"] == 3:  # the bench scene's sizes
         assert got["dense_tris_v4"].shape == (12, 3904)
         assert got["dense_cluster_aabb_v4"].shape == (8, 122)
@@ -134,10 +146,52 @@ def test_scene_from_numpy_keeps_dtypes():
                                   scene_np["v5_node_meta"])
 
 
+def _instanced_hair(pkg):
+    """A floor and two colored hair tufts, one of them under a rotation,
+    a uniform scale and a shift, built by package `pkg` (numpy colors
+    from a seed; the second tuft carries none)."""
+    scene_mod = __import__(f"{pkg}.scene.scene", fromlist=["SceneBuilder"])
+    cyhair = __import__(f"{pkg}.io.cyhair", fromlist=["make_demo_hair"])
+    demo = __import__(f"{pkg}.scene.demo", fromlist=["quad_mesh"])
+    b = scene_mod.SceneBuilder()
+    floor = demo.quad_mesh([-1, 0, -1], [-1, 0, 1], [1, 0, 1], [1, 0, -1],
+                           b.materials.add_principled("floor"), "floor")
+    b.add_instance([floor])
+    hid = b.materials.add_hair("hair", hair_coloring=0)
+    colored = cyhair.make_demo_hair(num_strands=12, seed=3)
+    colored.segment_colors = np.random.default_rng(4).random(
+        (colored.num_segments, 3)).astype(np.float32)
+    plain = cyhair.make_demo_hair(num_strands=5, seed=5)
+    c, s = np.cos(0.7), np.sin(0.7)
+    m = np.asarray([[1.5 * c, 0, 1.5 * s, 0.2], [0, 1.5, 0, -0.1],
+                    [-1.5 * s, 0, 1.5 * c, 0.3], [0, 0, 0, 1]])
+    for cm in (colored, plain):
+        cm.material_id = hid
+    b.add_instance([], curves=[colored])
+    b.add_instance([], curves=[plain], transform=m)
+    return scene_mod.commit(b.build())
+
+
+def test_instanced_colored_hair_matches_jax():
+    """Curves under an instance transform, with and without CyHair colors
+    (curve_color: -1 rows where a mesh has none), and the scene box."""
+    want, got = _instanced_hair("pbrlab_tpu"), _instanced_hair(
+        "pbrlab_tpu_torch")
+    for key in CURVE_KEYS + ("curve_color", "aabb_min", "aabb_max"):
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert got["curve_pts"].shape == (84 + 35, 4, 4)  # 7 segments a strand
+    assert (got["curve_color"][:84] >= 0).all()
+    assert (got["curve_color"][84:] == -1).all()
+    np.testing.assert_array_equal(np.unique(got["curve_instance"]), [1, 2])
+
+
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError):
-        tdemo.build_demo_scene(subdiv=1, with_hair=True)
+    from pbrlab_tpu_torch.ops.intersect import _tri_backend
+
     scene = scene_from_numpy(tdemo.build_demo_scene(subdiv=1)[0], "cpu")
+    with pytest.raises(NotImplementedError):
+        _tri_backend({**scene, "i5_tris": torch.zeros((12, 32))})
     scene["texture_atlas"] = torch.zeros((1, 2, 2, 3))
     with pytest.raises(NotImplementedError):
         build_fat_tables(scene)
