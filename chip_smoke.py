@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA library (every csrc/*.cu) and drives its four
+Builds the port's CUDA library (every csrc/*.cu) and drives its five
 render paths on one card:
 
 * cornellbox: `build_demo_scene(subdiv=3)`, dense_v4 (bench.py's headline
@@ -16,15 +16,20 @@ render paths on one card:
   the demo tuft (96 strands, 5376 sub-segments in 42 clusters): dense_v4
   for the triangles, dense_curve (closest and any-hit) for the hair,
   512x512, 8 spp;
+* instanced: `instanced_builder()` through `build_instanced`, 256 shared
+  icospheres (128 of subdiv 4 with the SSS material, 128 of subdiv 3
+  glossy; 819k world triangles from 6.4k local faces) on a textured
+  floor, dense_v5i (closest and any-hit), 256x256, 8 spp;
 
 all at max_steps=12, k_volume=3. Phase 3 checks each kernel against its
 plain torch version at its path's shapes and times both (dense_curve also
 on a dense tuft of 8192 strands, 3584 clusters); phase 4 checks small
-renders on the card against the same renders on the CPU; phase 5 renders
-each path with every launch counter set to 0 just before and read just
-after. Exits non-zero, printing no result, on any failure or without a
-CUDA card. The last lines are the kernels' JSON record, the card's name
-and power limit, and {"ok": true, "device": {...}}.
+renders on the card against the same renders on the CPU (the instanced
+one on a 16-instance cut of its scene, PARITY_INSTANCED); phase 5
+renders each path with every launch counter set to 0 just before and
+read just after. Exits non-zero, printing no result, on any failure or
+without a CUDA card. The last lines are the kernels' JSON record, the
+card's name and power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -44,7 +49,11 @@ PATHS = {  # name: (build_demo_scene kwargs, width = height, spp)
     "mid": (dict(subdiv=4), 256, 8),
     "large": (dict(subdiv=5, irregular=True), 512, 16),
     "hair": (dict(subdiv=3, with_hair=True), 512, 8),
+    "instanced": (None, 256, 8),  # instanced_builder() + build_instanced
 }
+# the instanced render parity's cut of the scene: the CPU's plain walk of
+# the full one takes seconds a trace
+PARITY_INSTANCED = dict(side=4, subdivs=(2, 1))
 DENSE_TUFT = 8192  # strands of the dense tuft that times dense_curve
 N_PLAIN_TUFT = 4096  # rays the plain walk checks on it (its time bound)
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
@@ -56,6 +65,80 @@ PEAK_BYTES = 3.35e12
 OPS_TRI = 40  # f32 operations of one ray-triangle test (csrc/*.cu)
 OPS_RIBBON = 56  # of one ray-ribbon test up to the hit (dense_curve.cu)
 OPS_BOX = 27  # f32 operations of one ray-box slab test
+OPS_XFORM = 42  # of one ray's transform into an instance (dense_v5i.cu)
+
+
+def instanced_builder(side=16, subdivs=(4, 3)):
+    """The instanced path's scene, built through the port's public API: a
+    side x side textured floor (a 64 x 64 linear checker through its
+    texcoords) in the xy plane facing +z, one 4 x 2 area light quad past
+    its top edge, 3 above it, facing it (the auto-framed camera looks down
+    -z, so the light does not hide the floor), and a side x side grid of
+    shared icosphere instances on it, interleaved: group A
+    icosphere(subdivs[0]) with the demo's random-walk SSS material, group
+    B icosphere(subdivs[1]) with its glossy GGX one, each instance rotated
+    about z and scaled 0.8-1.0 (tests/test_instancing.py:_transforms)."""
+    from pbrlab_tpu_torch.geometry.mesh import TriangleMesh
+    from pbrlab_tpu_torch.scene.demo import icosphere, quad_mesh
+    from pbrlab_tpu_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder()
+    m = b.materials
+    cells = np.indices((8, 8)).sum(0) % 2 * 0.6 + 0.2  # 8 x 8 cells
+    checker = np.repeat(np.repeat(cells, 8, 0), 8, 1)[..., None] * np.ones(3)
+    floor_m = m.add_principled("floor", base_color=(0.7, 0.7, 0.7),
+                               specular=0.0, roughness=0.5,
+                               base_color_tex_id=b.add_texture(
+                                   checker.astype(np.float32), "checker"))
+    light_m = m.add_principled("light", base_color=(0.0, 0.0, 0.0),
+                               specular=0.0)
+    sss = m.add_principled("sss", base_color=(1.0, 0.8, 0.8), subsurface=1.0,
+                           subsurface_radius=(1.0, 0.2, 0.1),
+                           subsurface_color=(1.0, 0.8, 0.8), specular=0.0,
+                           roughness=0.2)  # scene/demo.py:124-128
+    glossy = m.add_principled("glossy", base_color=(0.8, 0.5, 0.2),
+                              specular=1.0, roughness=0.01)  # :122-123
+    s = side / 2
+    quad = quad_mesh([-s, s, 0], [-s, -s, 0], [s, -s, 0], [s, s, 0], floor_m,
+                     "floor")
+    b.add_instance([TriangleMesh(
+        quad.vertices, quad.faces, material_ids=quad.material_ids,
+        texcoords=np.asarray([[0, 0], [0, 1], [1, 1], [1, 0]], np.float32),
+        texcoord_idx=quad.faces, name="floor")])
+    lid = b.add_area_light_param((50.0, 50.0, 50.0))
+    b.add_instance([quad_mesh([-2, s + 2.5, 3], [2, s + 2.5, 3],
+                              [2, s + 0.5, 3], [-2, s + 0.5, 3], light_m,
+                              "light")],
+                   light_ids=[np.full((2,), lid, np.int32)])
+    groups = ([], [])
+    for i in range(side * side):
+        gx, gy = i % side, i // side
+        c, sn = np.cos(0.7 * i), np.sin(0.7 * i)
+        t = np.eye(4)
+        t[:3, :3] = (np.asarray([[c, -sn, 0], [sn, c, 0], [0, 0, 1]])
+                     * (0.8 + 0.1 * (i % 3)))
+        t[:3, 3] = (gx - s + 0.5, gy - s + 0.5, 0.5)
+        groups[(gx + gy) % 2].append(t)
+    for (mat, name), sub, ts in zip(((sss, "sss"), (glossy, "glossy")),
+                                    subdivs, groups):
+        b.add_shared_instances([icosphere(sub, 0.45, material_id=mat,
+                                          name=name)], np.stack(ts))
+    return b
+
+
+def instanced_summary(s):
+    """The counts of an instanced commit: faces, slots, nodes, instances
+    and the bytes of its per-instance-face and two-level tables."""
+    nt = int(s["i5_inst_meta"][0].min())
+    valid = (s["local_fat"][:, 0:3] != 0).any(1)  # per local slot
+    by = {p: sum(v.nbytes for k, v in s.items() if k.startswith(p))
+          for p in ("i5_", "iface_")}
+    return (f"{int(valid[s['iface_local_slot']].sum())} world faces in "
+            f"{s['iface_material'].shape[0]} instance-face slots, "
+            f"{int(valid.sum())} local faces in {valid.shape[0]} local slots, "
+            f"{s['i5_inst_inv'].shape[1]} instances, {nt} TLAS nodes, "
+            f"{s['i5_node_meta'].shape[1] - nt} BLAS nodes, i5_* tables "
+            f"{by['i5_']} B, iface_* tables {by['iface_']} B")
 
 
 def card_line():
@@ -112,13 +195,22 @@ def check_hits(name, got, ref, occ=None, ref_occ=None):
         else 0.0
 
 
-def path_rays(scene, dev, rng):
-    """The main path's trace inputs in the cornellbox frame: N_DUAL bounce
-    rays from interior points with shadow queries towards the light quad
-    (y = 1.98, |x|, |z| < 0.4; 30% ask none, 5% of the lanes dead), and
-    N_SINGLE lanes of half camera rays (256^2 image), half bounce rays.
-    Returns (dual rays: org, dir, min_t, max_t, sdir, smin_t, smax_t;
-    single rays: org, dir, min_t, max_t)."""
+# (origin box lo, hi), (light quad lo, hi): the cornellbox's interior and
+# its ceiling light; the instanced scene's slab over the floor and its light
+CORNELL_FRAME = (([-0.95, 0.05, -0.95], [0.95, 1.95, 0.95]),
+                 ([-0.4, 1.98, -0.4], [0.4, 1.98, 0.4]))
+INSTANCED_FRAME = (([-8.0, -8.0, 0.05], [8.0, 8.0, 1.2]),
+                   ([-2.0, 8.5, 3.0], [2.0, 10.5, 3.0]))
+
+
+def path_rays(scene, dev, rng, frame=CORNELL_FRAME):
+    """A path's trace inputs: N_DUAL bounce rays from points of the origin
+    box with shadow queries towards a point of the light quad (30% ask
+    none, 5% of the lanes dead), and N_SINGLE lanes of half camera rays
+    (256^2 image), half bounce rays; `frame` holds the two boxes (a light
+    point is uniform on the axes where its box is not flat). Returns (dual
+    rays: org, dir, min_t, max_t, sdir, smin_t, smax_t; single rays: org,
+    dir, min_t, max_t)."""
     from pbrlab_tpu_torch.core.math import EPS, INF
     from pbrlab_tpu_torch.render.camera import generate_rays
 
@@ -128,12 +220,14 @@ def path_rays(scene, dev, rng):
     lane = torch.arange(N_DUAL, dtype=torch.int32, device=dev)
     cam_org, cam_dir = generate_rays(scene, 256, 256, t32(rng.random(N_DUAL)),
                                      t32(rng.random(N_DUAL)), lane)
-    b_org = rng.uniform([-0.95, 0.05, -0.95], [0.95, 1.95, 0.95],
-                        size=(N_DUAL, 3))
+    (lo, hi), (l_lo, l_hi) = frame
+    b_org = rng.uniform(lo, hi, size=(N_DUAL, 3))
     b_dir = rng.normal(size=(N_DUAL, 3))
     b_dir /= np.linalg.norm(b_dir, axis=1, keepdims=True)
-    lpt = np.stack([rng.uniform(-0.4, 0.4, N_DUAL), np.full(N_DUAL, 1.98),
-                    rng.uniform(-0.4, 0.4, N_DUAL)], axis=1)
+    lpt = np.tile(np.asarray(l_lo, np.float64), (N_DUAL, 1))
+    for a in range(3):
+        if l_lo[a] != l_hi[a]:
+            lpt[:, a] = rng.uniform(l_lo[a], l_hi[a], N_DUAL)
     to_l = lpt - b_org
     dist = np.linalg.norm(to_l, axis=1)
     smax = np.where(rng.random(N_DUAL) < 0.3, -1.0, dist - EPS)
@@ -234,6 +328,22 @@ def bvh_levels(node_meta):
     return parent, depth, right < 0
 
 
+def slab_enters(box, inv, oi, min_t, cap):
+    """Whether each ray enters each box before cap: the kernels' slab test
+    (box [6, ...] broadcast against the lanes' inv, o * inv)."""
+    near, far = [], []
+    for a in range(3):
+        t0 = box[a] * inv[a] - oi[a]
+        t1 = box[a + 3] * inv[a] - oi[a]
+        near.append(torch.minimum(t0, t1))
+        far.append(torch.maximum(t0, t1))
+    tnear = torch.maximum(torch.maximum(near[0], near[1]),
+                          torch.maximum(near[2], min_t))
+    tfar = torch.minimum(torch.minimum(far[0], far[1]),
+                         torch.minimum(far[2], cap))
+    return tnear <= tfar * 1.00000024
+
+
 def lane_visits(node_aabb, levels, org, direction, min_t, cap, lane_root):
     """[nodes, N] bool: the nodes a lane must visit on its own, knowing its
     final best t (`cap`): its start node, then every child of a visited
@@ -250,18 +360,8 @@ def lane_visits(node_aabb, levels, org, direction, min_t, cap, lane_root):
         for chunk in np.array_split(np.flatnonzero(depth == d),
                                     max(1, int((depth == d).sum()) // 256)):
             ids = torch.as_tensor(chunk, device=dev)
-            box = node_aabb[:, ids][..., None]  # [6, k, 1]
-            near, far = [], []
-            for a in range(3):
-                t0 = box[a] * inv[a] - oi[a]
-                t1 = box[a + 3] * inv[a] - oi[a]
-                near.append(torch.minimum(t0, t1))
-                far.append(torch.maximum(t0, t1))
-            tnear = torch.maximum(torch.maximum(near[0], near[1]),
-                                  torch.maximum(near[2], min_t))
-            tfar = torch.minimum(torch.minimum(far[0], far[1]),
-                                 torch.minimum(far[2], cap))
-            enters = tnear <= tfar * 1.00000024
+            enters = slab_enters(node_aabb[:, ids][..., None], inv, oi,
+                                 min_t, cap)
             par = torch.as_tensor(parent[chunk], device=dev)
             from_parent = vis[par.clamp(min=0)] & enters & (par >= 0)[:, None]
             vis[ids] = from_parent | (lane_root[None] == ids[:, None])
@@ -535,6 +635,121 @@ def curve_phase(dense_curve, scene, path_rays_, card):
     return rec
 
 
+def v5i_need(scene, org, direction, min_t, cap, occluded=None):
+    """(ray-triangle tests, ray-box tests, instance transforms) that these
+    inputs need when each lane walks the two levels alone knowing its
+    answer (`cap`: its final best t, or an any-hit lane's max t): the
+    children of every TLAS inner node it enters; at every TLAS leaf it
+    enters, the transform into the instance and the BLAS root's box; in
+    the BLAS, where it enters the root, the children of every inner node
+    and the 32 triangles of every leaf it enters. An occluded any-hit lane
+    needs one leaf on its shortest such path: the boxes on the way, one
+    transform and 32 tests."""
+    from pbrlab_tpu_torch.ops.dense_v5 import _inv
+    from pbrlab_tpu_torch.ops.dense_v5i import _affine
+
+    na, nm = scene["i5_node_aabb"], scene["i5_node_meta"]
+    inv, imeta = scene["i5_inst_inv"], scene["i5_inst_meta"]
+    dev = org.device
+    n = org.shape[0]
+    levels = bvh_levels(nm)
+    _, depth, is_leaf = levels
+    leaf = torch.as_tensor(is_leaf, device=dev)
+    depth = torch.as_tensor(depth, device=dev)
+    tlas = torch.arange(nm.shape[1], device=dev) < int(imeta[0].min())
+    occ = (torch.zeros((n,), dtype=torch.bool, device=dev)
+           if occluded is None else occluded)
+    live = cap >= min_t
+    full = live & ~occ  # lanes that walk up to cap
+    vis = lane_visits(na, levels, org, direction, min_t, cap,
+                      torch.zeros((n,), dtype=torch.int64, device=dev))
+    vis &= live[None]
+    box = 2 * int(vis[tlas & ~leaf][:, full].sum())
+    t_leaf, lane = torch.nonzero(vis & (tlas & leaf)[:, None], as_tuple=True)
+    inst = -nm[1][t_leaf].to(torch.int64) - 1
+    root = imeta[0][inst].to(torch.int64)
+    xforms = int(full[lane].sum())
+    box += xforms  # the BLAS root's box
+    tri = 0
+    big = 1 << 30
+    path = torch.full((n,), big, dtype=torch.int64, device=dev)
+    for c0 in range(0, lane.shape[0], 1 << 16):
+        ln, k = lane[c0:c0 + (1 << 16)], inst[c0:c0 + (1 << 16)]
+        r = root[c0:c0 + (1 << 16)]
+        a = inv[:, k]  # [12, P]
+        lo = [x[:, 0] for x in _affine(
+            a, *(c[ln][:, None] for c in org.unbind(1)), True)]
+        ld = [x[:, 0] for x in _affine(
+            a, *(c[ln][:, None] for c in direction.unbind(1)), False)]
+        i3 = [_inv(x) for x in ld]
+        enters = slab_enters(na[:, r], i3, [o * i for o, i in zip(lo, i3)],
+                             min_t[ln], cap[ln])
+        bv = lane_visits(na, levels, torch.stack(lo, 1), torch.stack(ld, 1),
+                         min_t[ln], cap[ln], r) & enters[None]
+        f = full[ln]
+        tri += 32 * int(bv[leaf][:, f].sum())
+        box += 2 * int(bv[~leaf][:, f].sum())
+        if occluded is not None:
+            shallow = torch.where(bv & leaf[:, None],
+                                  depth[:, None] - depth[r][None], big).amin(0)
+            cost = 2 * depth[t_leaf[c0:c0 + (1 << 16)]] + 1 + 2 * shallow
+            path.scatter_reduce_(0, ln, torch.where(
+                occ[ln] & (shallow < big), cost, big), "amin")
+    hit = live & occ & (path < big)
+    return (tri + 32 * int(hit.sum()), box + int(path[hit].sum()),
+            xforms + int(hit.sum()))
+
+
+def v5i_case(dense_v5i, name, scene, rays, any_hit, card):
+    """The dense_v5i kernel vs `_walk_ref` on whole groups: every output
+    equal to the bit; CUDA-event times (the plain walk timed on its one
+    parity call) and the bound of the work each lane needs (`v5i_need`)."""
+    tables = [scene[k] for k in ("i5_tris", "i5_node_aabb", "i5_node_meta",
+                                 "i5_inst_inv", "i5_inst_meta")]
+    args = (*tables, *rays)
+    got = dense_v5i._walk_cuda(*args, any_hit=any_hit)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    ref = dense_v5i._walk_ref(*args, any_hit=any_hit)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain = ev[0].elapsed_time(ev[1])
+    for key, a, b in zip("tuvp", got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: {key} differs from the plain walk "
+                                 f"on {int((a != b).sum())} lanes")
+    hit = ref[3] >= 0
+    err = float((got[0][hit] - ref[0][hit]).abs().max()) if hit.any() \
+        else 0.0
+    org, direction, min_t, max_t = rays
+    tri, box, xf = v5i_need(scene, org, direction, min_t,
+                            max_t if any_hit else ref[0],
+                            hit if any_hit else None)
+    ms = cuda_ms(lambda: dense_v5i._walk_cuda(*args, any_hit=any_hit),
+                 reps=10)
+    b_ms, b_by = bound(nbytes(*tables, *rays, *got),
+                       OPS_TRI * tri + OPS_BOX * box + OPS_XFORM * xf)
+    print(f"{name}: N={org.shape[0]} hits={int(hit.sum())} t, u, v, prim "
+          f"bit-equal to the plain walk (max|dt|={err:.3g}); kernel "
+          f"{ms:.4f} ms, plain walk {plain:.4f} ms (one call), bound "
+          f"{b_ms:.4f} ms ({b_by}; {tri} ray-triangle and {box} ray-box "
+          f"tests and {xf} transforms needed) ({card})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+
+
+def v5i_phase(dense_v5i, scene, path_rays_, card):
+    """dense_v5i at the instanced path's shapes: closest at N_DUAL, any-hit
+    on its shadow rays, closest at N_SINGLE."""
+    dual, single = path_rays_
+    rec = {"v5i": v5i_case(dense_v5i, "dense_v5i closest", scene, dual[:4],
+                           False, card)}
+    v5i_case(dense_v5i, "dense_v5i any-hit (shadow rays)", scene,
+             (dual[0], *dual[4:]), True, card)
+    v5i_case(dense_v5i, "dense_v5i closest", scene, single, False, card)
+    return rec
+
+
 def render_parity(name, scene_np, scene, **kw):
     from pbrlab_tpu_torch.render.integrator import render
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
@@ -560,9 +775,11 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pbrlab_tpu_torch.ops import cuda_lib, dense_curve, dense_v4, dense_v5
+    from pbrlab_tpu_torch.ops import (cuda_lib, dense_curve, dense_v4,
+                                      dense_v5, dense_v5i)
     from pbrlab_tpu_torch.render.integrator import render_lanes_wavefront
     from pbrlab_tpu_torch.scene.demo import build_demo_scene
+    from pbrlab_tpu_torch.scene.instanced import build_instanced
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
 
     dev = torch.device("cuda:0")
@@ -581,10 +798,16 @@ def main():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    # the four paths' scenes (commit on the host, tables to the card)
+    # the five paths' scenes (commit on the host, tables to the card)
     scenes_np, scenes = {}, {}
     for name, (kw, _, _) in PATHS.items():
         t0 = time.perf_counter()
+        if kw is None:
+            scenes_np[name] = build_instanced(instanced_builder())
+            scenes[name] = scene_from_numpy(scenes_np[name], dev)
+            print(f"scene {name}: {instanced_summary(scenes_np[name])}, "
+                  f"built in {time.perf_counter() - t0:.2f} s")
+            continue
         scenes_np[name] = build_demo_scene(**kw)[0]
         scenes[name] = scene_from_numpy(scenes_np[name], dev)
         s = scenes_np[name]
@@ -599,11 +822,15 @@ def main():
 
     # phase 3: kernel parity and times at each path's shapes
     rng = np.random.default_rng(SEED)
-    rays = {name: path_rays(scenes[name], dev, rng) for name in PATHS}
+    rays = {name: path_rays(scenes[name], dev, rng, INSTANCED_FRAME
+                            if name == "instanced" else CORNELL_FRAME)
+            for name in PATHS}
     rec = v4_phase(dense_v4, scenes["cornellbox"], *rays["cornellbox"], card)
     rec.update(v5_phase(dense_v5, scenes["mid"], scenes["large"],
                         rays["mid"], rays["large"], card))
     rec.update(curve_phase(dense_curve, scenes["hair"], rays["hair"], card))
+    rec.update(v5i_phase(dense_v5i, scenes["instanced"], rays["instanced"],
+                         card))
 
     # phase 4: render parity, card (kernels) vs CPU (plain versions)
     render_parity("cornellbox", scenes_np["cornellbox"], scenes["cornellbox"],
@@ -612,16 +839,22 @@ def main():
                   height=32, spp=2, **SETTINGS)
     render_parity("hair", scenes_np["hair"], scenes["hair"], width=32,
                   height=32, spp=2, **SETTINGS)
+    cut = build_instanced(instanced_builder(**PARITY_INSTANCED))
+    print(f"instanced parity scene {PARITY_INSTANCED}: "
+          f"{instanced_summary(cut)}")
+    render_parity("instanced", cut, scene_from_numpy(cut, dev), width=32,
+                  height=32, spp=2, **SETTINGS)
     print(f"phases 1-4 took {time.perf_counter() - t_start:.1f} s")
 
-    # phase 5: the four paths, each with its launches counted
+    # phase 5: the five paths, each with its launches counted
     expect = {"cornellbox": (("v4", "dual"), ("v4", "single")),
               "mid": (("v5", "v5_dual"), ("v5", "v5")),
               "large": (("v5", "v5l"),),
               "hair": (("v4", "dual"), ("curve", "closest"),
-                       ("curve", "any_hit"))}
+                       ("curve", "any_hit")),
+              "instanced": (("v5i", "closest"), ("v5i", "any_hit"))}
     counters = {"v4": dense_v4.LAUNCHES, "v5": dense_v5.LAUNCHES,
-                "curve": dense_curve.LAUNCHES}
+                "curve": dense_curve.LAUNCHES, "v5i": dense_v5i.LAUNCHES}
     launches = {}
     for name, (_, size, spp) in PATHS.items():
         for c in counters.values():
@@ -636,7 +869,8 @@ def main():
         wall = time.perf_counter() - t0
         counts = {f"{m}.{k}": v for m, c in counters.items()
                   for k, v in c.items()}
-        launches[name] = {k: counters[m][k] for m, k in expect[name]}
+        launches[name] = {f"{m}.{k}": counters[m][k]
+                          for m, k in expect[name]}
         print(f"path {name}: render {size}x{size}x{spp} max_steps="
               f"{SETTINGS['max_steps']} k_volume={SETTINGS['k_volume']} in "
               f"{wall:.3f} s, {iters} sub-iterations, launches {counts}, "
@@ -654,20 +888,23 @@ def main():
     v5_src = "pbrlab_tpu_torch/csrc/dense_v5.cu"
     v4_py = "pbrlab_tpu/ops/pallas/dense_v4.py"
     v5_py = "pbrlab_tpu/ops/pallas/dense_v5.py"
-    hair = launches["hair"]
+    hair, inst = launches["hair"], launches["instanced"]
     rows = [("dense_v4_trace_dual", v4_src, f"{v4_py}:248",
-             launches["cornellbox"]["dual"], rec["dual"]),
+             launches["cornellbox"]["v4.dual"], rec["dual"]),
             ("dense_v4_trace", v4_src, f"{v4_py}:115",
-             launches["cornellbox"]["single"], rec["single"]),
+             launches["cornellbox"]["v4.single"], rec["single"]),
             ("dense_v5_trace_dual", v5_src, f"{v5_py}:357",
-             launches["mid"]["v5_dual"], rec["v5_dual"]),
+             launches["mid"]["v5.v5_dual"], rec["v5_dual"]),
             ("dense_v5_trace", v5_src, f"{v5_py}:134",
-             launches["mid"]["v5"], rec["v5"]),
+             launches["mid"]["v5.v5"], rec["v5"]),
             ("dense_v5l_trace", v5_src, f"{v5_py}:646",
-             launches["large"]["v5l"], rec["v5l"]),
+             launches["large"]["v5.v5l"], rec["v5l"]),
             ("dense_curve_trace", "pbrlab_tpu_torch/csrc/dense_curve.cu",
              "pbrlab_tpu/ops/pallas/dense_curve.py:103",
-             hair["closest"] + hair["any_hit"], rec["curve"])]
+             hair["curve.closest"] + hair["curve.any_hit"], rec["curve"]),
+            ("dense_v5i_trace", "pbrlab_tpu_torch/csrc/dense_v5i.cu",
+             "pbrlab_tpu/ops/pallas/dense_v5i.py:66",
+             inst["v5i.closest"] + inst["v5i.any_hit"], rec["v5i"])]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -7,9 +7,9 @@ window [prim_offset, prim_offset + leaf_size) into a reordered primitive
 array padded with -1; children are ordered along the split axis.
 
 Builds of >= 4096 primitives go through the native C++ builder
-(`geometry.native`, `csrc/bvh_builder.cpp`), as in the JAX package: its
-tree differs from this numpy build's, so the routing must be the same for
-the slot ids to be.
+(`geometry.native`, `csrc/bvh_builder.cpp`) unless the caller passes
+use_native=False, as in the JAX package: its tree differs from this numpy
+build's, so the routing must be the same for the slot ids to be.
 """
 from __future__ import annotations
 
@@ -44,10 +44,11 @@ class BVH:
 
 
 def build_bvh(prim_bmin: np.ndarray, prim_bmax: np.ndarray,
-              leaf_size: int = LEAF_SIZE) -> BVH:
-    """Build from per-primitive AABBs [P, 3]."""
+              leaf_size: int = LEAF_SIZE, use_native: bool = True) -> BVH:
+    """Build from per-primitive AABBs [P, 3]. use_native=False keeps a
+    large build on numpy (the instanced TLAS, as in the JAX package)."""
     P = prim_bmin.shape[0]
-    if P >= NATIVE_MIN_PRIMS:
+    if use_native and P >= NATIVE_MIN_PRIMS:
         from .native import build_bvh_native
 
         return build_bvh_native(prim_bmin, prim_bmax, leaf_size)

@@ -10,11 +10,11 @@ curve parameter, v the signed ribbon offset and tangent the sub-segment's
 unit direction.
 
 The triangle backend is the JAX package's choice on its accelerators:
-dense_v5s past 18000 slots (the commit then adds the v5s tables), dense_v4
-up to 256 clusters, dense_v5 between. Curves always go through
-dense_curve, which has no dual kernel: a step of a hair scene launches its
-closest and its any-hit query. Instancing raises: its kernel is not ported
-yet.
+dense_v5i for an instanced scene (`scene.instanced`; prim is then the
+global instance-face id), dense_v5s past 18000 slots (the commit then adds
+the v5s tables), dense_v4 up to 256 clusters, dense_v5 between. Curves
+always go through dense_curve. dense_v5i and dense_curve have no dual
+kernel: a step launches their closest and their any-hit query.
 """
 from __future__ import annotations
 
@@ -24,17 +24,17 @@ from .dense_curve import dense_curve_trace
 from .dense_v4 import dense_trace_v4, dense_trace_v4_dual
 from .dense_v5 import (dense_trace_v5, dense_trace_v5_dual, dense_trace_v5l,
                        dense_trace_v5s)
+from .dense_v5i import dense_trace_v5i
 
 MAX_DENSE4_CLUSTERS = 256
 
 
 def _tri_backend(scene) -> str:
-    """The triangle backend for a committed scene: "dense5s", "dense5l",
-    "dense4" or "dense5"."""
-    if "i5_tris" in scene or "iface_material" in scene:
-        raise NotImplementedError(
-            "instanced scenes need the dense_v5i kernel, not ported yet "
-            "(ROADMAP A13, B6)")
+    """The triangle backend for a committed scene: "dense5i", "dense5s",
+    "dense5l", "dense4" or "dense5"."""
+    if "i5_tris" in scene:
+        # no baked world-space tables: the two-level walk is the only one
+        return "dense5i"
     if "v5s_roots" in scene:
         return "dense5s"
     if "dense_tris_v5l" in scene:
@@ -53,6 +53,11 @@ def sparse_backend(scene) -> str | None:
 
 
 def _closest(scene, backend, org, direction, min_t, max_t, any_hit=False):
+    if backend == "dense5i":
+        return dense_trace_v5i(scene["i5_tris"], scene["i5_node_aabb"],
+                               scene["i5_node_meta"], scene["i5_inst_inv"],
+                               scene["i5_inst_meta"], org, direction, min_t,
+                               max_t, any_hit=any_hit)
     if backend == "dense5s":
         return dense_trace_v5s(scene["dense_tris_v5l"], scene["v5_node_aabb"],
                                scene["v5_node_meta"], scene["v5s_roots"],
@@ -144,7 +149,8 @@ def trace_scene_dual(scene, org, direction, min_t, max_t, sdir, smin_t,
     """Closest hit + shadow any-hit sharing the origin (the deferred-NEE
     step) -> (trace_scene dict, occluded bool). Triangles: one dual-kernel
     launch for dense4 and dense5, two launches (closest, then shadow) for
-    the large-scene backends, which have no dual kernel. Curves: a closest
+    the large-scene and instanced backends, which have no dual kernel.
+    Curves: a closest
     and an any-hit dense_curve launch."""
     backend = backend or _tri_backend(scene)
     if backend == "dense4":

@@ -20,9 +20,14 @@ the hair frame (tangent, ribbon offset h) with the Principled Hair BSDF
 (`shading/hair.py`): NEE without the hemisphere test, 4 closure draws, no
 SSS entry.
 
+Instanced scenes (`scene.instanced`) trace through dense_v5i and shade
+from a narrow per-(instance, face) row plus the shared local face row,
+with the normals rotated into world space per lane. Textured scenes fetch
+base and subsurface colour from the quad-texel atlas at the hit's uv.
+
 Not in this slice: the differentiable scan path (`render_lanes`,
-`render_scan`), textures, instancing, sharding, and the JAX package's
-PBRLAB_* environment knobs (ROADMAP A9-A16).
+`render_scan`), sharding, and the JAX package's PBRLAB_* environment
+knobs (ROADMAP A9, A15, A16).
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from ..ops.intersect import (has_curves, sparse_backend, trace_scene,
 from ..scene.lights import sample_all_light
 from ..scene.materials import KIND_HAIR, unpack_material_rows
 from ..scene.scene import build_fat_tables
+from ..scene.textures import fetch_float3_quad
 from ..shading import hair, principled
 from ..shading.principled import PrincipledBsdf
 from ..shading.sss import sample_scatter_distance, scattering_coefficients
@@ -169,17 +175,56 @@ def _surface_attribs(frow, u, v):
     return ng, ns, uv
 
 
+def _rows(table, idx):
+    """table[clip(idx, 0, rows - 1)] for an index column idx [N] (int or
+    float)."""
+    i = torch.clamp(idx.to(torch.int64), 0, table.shape[0] - 1)
+    return table[i]
+
+
+def _fetch_face_fat(scene, safe_prim):
+    """Per-lane face row [N, 26] (layout: build_fat_tables' face_fat).
+    Baked scenes: one face_fat row. Instanced scenes: the narrow iface_fat
+    row and the shared local_fat row, the local normals rotated into world
+    space by the instance's normal matrix (inst_shade[:, 12:21]); the
+    instance column is the world instance (mesh-instance.h:23-36)."""
+    if "iface_fat" not in scene:
+        return scene["face_fat"][safe_prim]
+    irow = scene["iface_fat"][safe_prim]  # mat pdf em3 inst slot 0
+    lrow = _rows(scene["local_fat"], irow[:, 6])  # ng cns uv has_ns has_uv
+    nrm = _rows(scene["inst_shade"], irow[:, 5])[:, 12:21].reshape(-1, 3, 3)
+
+    def rot(v):  # nrm @ v per lane, summed in index order
+        return (nrm[:, :, 0] * v[:, 0:1] + nrm[:, :, 1] * v[:, 1:2]
+                + nrm[:, :, 2] * v[:, 2:3])
+
+    cns = lrow[:, 3:12].reshape(-1, 3, 3)
+    cns_w = torch.cat([vnormalize(rot(cns[:, i])) for i in range(3)], dim=1)
+    # rows without shading normals (zero corners) stay exactly zero
+    cns_w = torch.where(lrow[:, 18:19] > 0.0, cns_w, 0.0)
+    return torch.cat([vnormalize(rot(lrow[:, 0:3])), cns_w, lrow[:, 12:20],
+                      irow[:, 0:6]], dim=1)
+
+
 def _gather_material(scene, mat_id):
-    idx = torch.clamp(mat_id, 0, scene["mat_fat"].shape[0] - 1).to(torch.int64)
-    return unpack_material_rows(scene["mat_fat"][idx])
+    return unpack_material_rows(_rows(scene["mat_fat"], mat_id))
 
 
-def _fetch_colors(scene, mat):
-    """base_color / subsurface_color (constants; textured scenes are not
-    ported yet)."""
-    if "texture_quad" in scene:
-        raise NotImplementedError("textures are not ported yet (ROADMAP A12)")
-    return mat["base_color"], mat["subsurface_color"]
+def _fetch_colors(scene, mat, uv):
+    """base_color / subsurface_color, fetched from the quad-texel atlas at
+    uv where the material's tex id is >= 0 (cycles-principled-shader.cc
+    :281-301). A scene without textures has no texture_quad and skips the
+    fetch."""
+    if "texture_quad" not in scene:
+        return mat["base_color"], mat["subsurface_color"]
+    out = []
+    for key in ("base_color", "subsurface_color"):
+        tid = mat[f"{key}_tex_id"]
+        out.append(torch.where(
+            (tid >= 0)[..., None],
+            fetch_float3_quad(scene["texture_quad"], scene["texture_sizes"],
+                              tid, uv[..., 0], uv[..., 1]), mat[key]))
+    return tuple(out)
 
 
 def _nee(scene, pos, geom_normal, omega_out_local, ex, ey, ez,
@@ -290,18 +335,19 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     # missed surface lanes carry t = INF; shade them at a finite dummy t
     t_shade = torch.where(hit_ok | volume_mode, t_eff, 1.0)
     pos = state.org + t_shade[..., None] * direction
-    frow = scene["face_fat"][torch.clamp(prim, min=0).to(torch.int64)]
-    ng, ns, _uv = _surface_attribs(frow, hit["u"], hit["v"])
+    frow = _fetch_face_fat(scene, torch.clamp(prim, min=0).to(torch.int64))
+    ng, ns, uv = _surface_attribs(frow, hit["u"], hit["v"])
     hit_instance = frow[:, 25].to(torch.int32)
     mat_id = frow[:, 20].to(torch.int32)
     with_hair = has_curves(scene)
     if with_hair:
         # a curve hit delivers its tangent through the normal slots
-        # (scene.cc:222-224, hair-shader.cc:165); instance and material
-        # come from the segment's columns
+        # (scene.cc:222-224, hair-shader.cc:165) and its (u, v) as uv;
+        # instance and material come from the segment's columns
         ic = is_curve[..., None]
         ng = torch.where(ic, hit["tangent"], ng)
         ns = torch.where(ic, hit["tangent"], ns)
+        uv = torch.where(ic, torch.stack([hit["u"], hit["v"]], dim=-1), uv)
         seg = torch.clamp(hit["seg"], min=0).to(torch.int64)
         hit_instance = torch.where(is_curve, scene["curve_instance"][seg],
                                    hit_instance)
@@ -384,7 +430,7 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
         geom_normal = torch.where(hl, ex_h, geom_normal)
     omega_out = to_local(omega_out_g, ex, ey, ez)
 
-    base_color, sub_color = _fetch_colors(scene, mat)
+    base_color, sub_color = _fetch_colors(scene, mat, uv)
     bsdf = principled.param_to_bsdf(mat, base_color, sub_color)
     exit_bsdf = principled.diffuse_only_bsdf(sss_tp)
     bsdf = PrincipledBsdf(*[
@@ -547,7 +593,7 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
     """
     if "mat_fat" not in scene:
         scene = build_fat_tables(scene)
-    dev = scene["tri_v0"].device
+    dev = scene["mat_fat"].device
     n = width * height
     n_lanes = max(1, min(n, n_lanes))
     if vol_window is None:

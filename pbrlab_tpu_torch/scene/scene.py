@@ -9,10 +9,12 @@ scenes past 18000 slots, the compaction signature boxes, and the hair
 tables of `commit_curves` (sub-segment columns in Morton order, the
 dense_curve rows and cluster boxes, the per-sub-segment tangent rows).
 `scene_from_numpy` moves a committed scene (from either package) to torch
-tensors on a device; `build_fat_tables` packs the per-lane fat rows there.
+tensors on a device; `build_fat_tables` packs the per-lane fat rows there,
+for a baked scene or an instanced one (`scene.instanced.build_instanced`),
+and the quad-texel texture atlas of a textured scene.
 
-Not ported yet: textures, shared instancing, and the tables of the legacy
-dense v1-v3 backends (ROADMAP A12, A13, B8). The threaded-BVH tables
+Not ported yet: the tables of the legacy dense v1-v3 backends (ROADMAP
+B8). The threaded-BVH tables
 (`bvh_*`, and the curve BVH `cbvh_*` that only the JAX package's CPU
 `curve_trace` reads) are left out: the port's CPU traces are the plain
 versions of its kernels.
@@ -30,6 +32,7 @@ from ..ops.build import build_v5, leaf_major, subtree_cut
 from ..ops.curves import flatten_curves
 from ..ops.dense_curve import pack_segments
 from .materials import MaterialBuilder, pack_material_fat
+from .textures import build_quad_atlas
 
 V5L_MIN_SLOTS = 18000  # commit adds the dense_v5l / v5s tables above this
 
@@ -73,11 +76,27 @@ class SceneBuilder:
     def __init__(self):
         self.materials = MaterialBuilder()
         self._instances: List[_Instance] = []
+        self._shared: List = []  # scene.instanced.SharedGroup
         self._light_params: List[np.ndarray] = []  # emission rgb per light param
+        self._textures: List[np.ndarray] = []
 
     def add_area_light_param(self, emission) -> int:
         self._light_params.append(np.asarray(emission, np.float32))
         return len(self._light_params) - 1
+
+    def add_texture(self, image: np.ndarray, name: str = "") -> int:
+        """Register a linear float texture [H, W] or [H, W, 1|3|4]; one
+        channel is repeated to RGB. The baked atlas is RGBA when any
+        texture has 4 channels (reference Texture::FetchFloatN is channel
+        generic, texture.h:28-34), else RGB. `name` is accepted as in the
+        JAX package and not kept (nothing reads it)."""
+        img = np.ascontiguousarray(np.asarray(image, np.float32))
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.shape[-1] == 1:
+            img = np.repeat(img, 3, axis=-1)
+        self._textures.append(img)
+        return len(self._textures) - 1
 
     def add_instance(self, meshes: List[TriangleMesh],
                      curves: Optional[List[CubicBezierCurveMesh]] = None,
@@ -88,6 +107,25 @@ class SceneBuilder:
         self._instances.append(_Instance(meshes, curves or [], light_ids,
                                          transform))
         return len(self._instances) - 1
+
+    def add_shared_instances(self, meshes: List[TriangleMesh], transforms,
+                             light_ids=None, curves=None) -> int:
+        """K instances of ONE local scene (reference CreateLocalScene + K x
+        CreateInstanceFromLocalScene, raytracer_impl.cc:49-84); transforms
+        [K, 4, 4] or [K, 3, 4]. Curves of the local scene are baked to
+        world space per instance at build time; the triangles share one
+        BLAS. Such a scene commits through `scene.instanced.build_instanced`.
+        """
+        from .instanced import SharedGroup
+
+        t = np.asarray(transforms, np.float32)
+        if t.shape[1:] == (3, 4):
+            pad = np.broadcast_to(np.asarray([0, 0, 0, 1], np.float32),
+                                  (t.shape[0], 1, 4))
+            t = np.concatenate([t, pad], axis=1)
+        self._shared.append(SharedGroup(
+            meshes, t, light_ids or [None] * len(meshes), curves or []))
+        return len(self._shared) - 1
 
     def build(self) -> Dict[str, np.ndarray]:
         tri_v, tri_ns, tri_has_ns, tri_uv, tri_has_uv = [], [], [], [], []
@@ -167,6 +205,8 @@ class SceneBuilder:
         scene["light_emission"] = light_emission
 
         scene["materials"] = self.materials.build()
+        scene["texture_atlas"], scene["texture_sizes"] = texture_atlas(
+            self._textures)
 
         # hair: Bezier segments baked to world space, per-segment material
         # and instance; curve_color only when some mesh carries colors
@@ -205,6 +245,27 @@ class SceneBuilder:
         scene["aabb_min"] = allp.min(axis=0).astype(np.float32)
         scene["aabb_max"] = allp.max(axis=0).astype(np.float32)
         return scene
+
+
+def texture_atlas(textures: List[np.ndarray], channels: Optional[int] = None):
+    """Textures [H, W, C] -> (atlas [T, Hmax, Wmax, ch] zero-padded, sizes
+    [T, 2] (h, w)). ch is `channels`, else the largest C; a 4-channel
+    atlas is opaque where a texture has no alpha. No textures: a dummy
+    [1, 1, 1, 3] atlas, which `build_fat_tables` recognises."""
+    if not textures:
+        return np.zeros((1, 1, 1, 3), np.float32), np.ones((1, 2), np.int32)
+    hmax = max(t.shape[0] for t in textures)
+    wmax = max(t.shape[1] for t in textures)
+    ch = channels or max(t.shape[2] for t in textures)
+    atlas = np.zeros((len(textures), hmax, wmax, ch), np.float32)
+    if ch == 4:
+        atlas[..., 3] = 1.0
+    sizes = np.zeros((len(textures), 2), np.int32)
+    for i, t in enumerate(textures):
+        t = t[..., :ch]
+        atlas[i, :t.shape[0], :t.shape[1], :t.shape[2]] = t
+        sizes[i] = t.shape[:2]
+    return atlas, sizes
 
 
 def _signature_cut(node_aabb: np.ndarray, node_meta: np.ndarray,
@@ -320,36 +381,59 @@ def build_fat_tables(scene: Dict) -> Dict:
     """Pack per-face / material / emissive-face data into fat row matrices
     on the scene's device, so a lane fetches each with one row gather.
 
+    Baked scene:
     face_fat [F, 26]: 0:3 ng | 3:12 corner ns | 12:18 corner uv | 18 has_ns
       | 19 has_uv | 20 mat_id | 21 light_pdf | 22:25 emission | 25 instance
-    light_fat [LF, 16]: v0 e1 e2 ng emission pdf
+    Instanced scene (`scene.instanced`): the narrow rows
+    iface_fat [F, 8]: 0 mat_id | 1 light_pdf | 2:5 emission | 5 instance
+      | 6 local slot | 7 zero
+    beside the per-local-face geometric rows local_fat [S, 20] (face_fat's
+    0:20, in local space).
+    light_fat [LF, 16]: v0 e1 e2 ng emission pdf (world space)
     mat_fat [M, K]: see materials.fat_layout().
+    texture_quad [T, H, W, 4C]: a textured scene's quad-texel atlas
+      (`textures.build_quad_atlas`).
     """
-    if "iface_material" in scene:
-        raise NotImplementedError(
-            "shared instancing is not ported yet (ROADMAP A13)")
-    atlas = scene.get("texture_atlas")
-    if atlas is not None and tuple(atlas.shape[:3]) != (1, 1, 1):
-        raise NotImplementedError("textures are not ported yet (ROADMAP A12)")
     scene = dict(scene)
-    F = scene["tri_v0"].shape[0]
     f32 = torch.float32
-    scene["face_fat"] = torch.cat([
-        scene["face_ng"],
-        scene["face_ns"].reshape(F, 9),
-        scene["face_uv"].reshape(F, 6),
-        scene["face_has_ns"].to(f32)[:, None],
-        scene["face_has_uv"].to(f32)[:, None],
-        scene["face_material"].to(f32)[:, None],
-        scene["face_light_pdf"][:, None],
-        scene["face_emission"],
-        scene["face_instance"].to(f32)[:, None],
-    ], dim=1)
     lf = scene["emissive_faces"].to(torch.int64)
-    scene["light_fat"] = torch.cat([
-        scene["tri_v0"][lf], scene["tri_e1"][lf], scene["tri_e2"][lf],
-        scene["face_ng"][lf], scene["face_emission"][lf],
-        scene["face_light_pdf"][lf][:, None],
-    ], dim=1)
+    if "iface_material" in scene:
+        n = scene["iface_material"].shape[0]
+        scene["iface_fat"] = torch.cat([
+            scene["iface_material"].to(f32)[:, None],
+            scene["iface_light_pdf"][:, None],
+            scene["iface_emission"],
+            scene["iface_instance"].to(f32)[:, None],
+            scene["iface_local_slot"].to(f32)[:, None],
+            torch.zeros((n, 1), dtype=f32, device=lf.device),
+        ], dim=1)
+        scene["light_fat"] = torch.cat([
+            scene["light_v0"], scene["light_e1"], scene["light_e2"],
+            scene["light_ng"], scene["iface_emission"][lf],
+            scene["iface_light_pdf"][lf][:, None],
+        ], dim=1)
+    else:
+        F = scene["tri_v0"].shape[0]
+        scene["face_fat"] = torch.cat([
+            scene["face_ng"],
+            scene["face_ns"].reshape(F, 9),
+            scene["face_uv"].reshape(F, 6),
+            scene["face_has_ns"].to(f32)[:, None],
+            scene["face_has_uv"].to(f32)[:, None],
+            scene["face_material"].to(f32)[:, None],
+            scene["face_light_pdf"][:, None],
+            scene["face_emission"],
+            scene["face_instance"].to(f32)[:, None],
+        ], dim=1)
+        scene["light_fat"] = torch.cat([
+            scene["tri_v0"][lf], scene["tri_e1"][lf], scene["tri_e2"][lf],
+            scene["face_ng"][lf], scene["face_emission"][lf],
+            scene["face_light_pdf"][lf][:, None],
+        ], dim=1)
     scene["mat_fat"] = pack_material_fat(scene["materials"])
+    # the dummy atlas of a scene without textures gets no quad atlas, and
+    # the integrator then skips the texture fetch
+    if tuple(scene["texture_atlas"].shape[:3]) != (1, 1, 1):
+        scene["texture_quad"] = build_quad_atlas(scene["texture_atlas"],
+                                                 scene["texture_sizes"])
     return scene

@@ -187,11 +187,18 @@ def test_instanced_colored_hair_matches_jax():
 
 
 def test_unported_features_raise():
-    from pbrlab_tpu_torch.ops.intersect import _tri_backend
+    """The legacy brute-force backends (ROADMAP B8) are not ported and
+    raise; instancing and textures, ported since, dispatch instead."""
+    from pbrlab_tpu_torch.ops.intersect import _closest, _tri_backend
 
     scene = scene_from_numpy(tdemo.build_demo_scene(subdiv=1)[0], "cpu")
-    with pytest.raises(NotImplementedError):
-        _tri_backend({**scene, "i5_tris": torch.zeros((12, 32))})
+    ray = (torch.zeros((4, 3)), torch.ones((4, 3)), torch.zeros(4),
+           torch.ones(4))
+    for legacy in ("dense3", "dense"):
+        with pytest.raises(ValueError):
+            _closest(scene, legacy, *ray)
+    assert _tri_backend({**scene, "i5_tris": torch.zeros((12, 32))}) \
+        == "dense5i"
     scene["texture_atlas"] = torch.zeros((1, 2, 2, 3))
-    with pytest.raises(NotImplementedError):
-        build_fat_tables(scene)
+    scene["texture_sizes"] = torch.full((1, 2), 2, dtype=torch.int32)
+    assert build_fat_tables(scene)["texture_quad"].shape == (1, 2, 2, 12)
