@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA library (every csrc/*.cu) and drives its five
+Builds the port's CUDA library (every csrc/*.cu) and drives its six
 render paths on one card:
 
 * cornellbox: `build_demo_scene(subdiv=3)`, dense_v4 (bench.py's headline
@@ -20,16 +20,23 @@ render paths on one card:
   icospheres (128 of subdiv 4 with the SSS material, 128 of subdiv 3
   glossy; 819k world triangles from 6.4k local faces) on a textured
   floor, dense_v5i (closest and any-hit), 256x256, 8 spp;
+* file: the cornellbox of `build_demo_scene(subdiv=3)` written as OBJ +
+  MTL + scene JSON (`write_cornellbox`) into a temporary directory and
+  loaded with `io.scene_json.load_scene_json`, rendered twice through the
+  legacy backends the render's `tri_backend` forces: dense_v3 ("dense3")
+  at 512x512, 8 spp, and dense_v2 ("dense") at 256x256, 8 spp;
 
 all at max_steps=12, k_volume=3. Phase 3 checks each kernel against its
 plain torch version at its path's shapes and times both (dense_curve also
-on a dense tuft of 8192 strands, 3584 clusters); phase 4 checks small
-renders on the card against the same renders on the CPU (the instanced
-one on a 16-instance cut of its scene, PARITY_INSTANCED); phase 5
-renders each path with every launch counter set to 0 just before and
-read just after. Exits non-zero, printing no result, on any failure or
-without a CUDA card. The last lines are the kernels' JSON record, the
-card's name and power limit, and {"ok": true, "device": {...}}.
+on a dense tuft of 8192 strands, 3584 clusters; the legacy v1 kernel,
+which no render path reaches, at the file path's shapes); phase 4 checks
+small renders on the card against the same renders on the CPU (the
+instanced one on a 16-instance cut of its scene, PARITY_INSTANCED; the
+file scene through both legacy backends); phase 5 renders each path with
+every launch counter set to 0 just before and read just after. Exits
+non-zero, printing no result, on any failure or without a CUDA card. The
+last lines are the kernels' JSON record, the card's name and power
+limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,6 +59,10 @@ PATHS = {  # name: (build_demo_scene kwargs, width = height, spp)
     "hair": (dict(subdiv=3, with_hair=True), 512, 8),
     "instanced": (None, 256, 8),  # instanced_builder() + build_instanced
 }
+# the file path: the scene write_cornellbox() writes, rendered through each
+# legacy backend: tri_backend -> (width = height, spp)
+FILE_RENDERS = {"dense3": (512, 8), "dense": (256, 8)}
+FILE_FACES = 2572  # build_demo_scene(subdiv=3): 5 walls, light, 2 bodies
 # the instanced render parity's cut of the scene: the CPU's plain walk of
 # the full one takes seconds a trace
 PARITY_INSTANCED = dict(side=4, subdivs=(2, 1))
@@ -124,6 +136,96 @@ def instanced_builder(side=16, subdivs=(4, 3)):
         b.add_shared_instances([icosphere(sub, 0.45, material_id=mat,
                                           name=name)], np.stack(ts))
     return b
+
+
+def write_cornellbox(dirpath, subdiv=3):
+    """The cornellbox of `build_demo_scene(subdiv)` as the files a user
+    renders: cornellbox.obj (one object per mesh: floor, ceiling, back,
+    left, right, light, monkey, lucy; the bodies with their vertex
+    normals; usemtl names each mesh's material), cornellbox.mtl (every
+    demo material with all 17 principled keys), and cornellbox.json: the
+    OBJ, the two bodies' materials again as JSON materials of the same
+    names, the ceiling's area light, and one local scene and instance per
+    mesh, the bodies with their JSON material, the light quad with the
+    light. Every demo material parameter has a key in both formats.
+    Returns the JSON's path."""
+    from pbrlab_tpu_torch.scene.demo import build_demo_scene
+    from pbrlab_tpu_torch.scene.materials import PRINCIPLED_COLUMNS
+
+    _, b = build_demo_scene(subdiv=subdiv)
+    names, rows = b.materials.names, b.materials.rows
+
+    def fmt(x):  # repr round-trips every float32 and float64 exactly
+        return " ".join(repr(float(v)) for v in np.atleast_1d(x))
+
+    mtl = []
+    for name, row in zip(names, rows):
+        mtl.append(f"newmtl {name}")
+        mtl += [f"{k} {fmt(row[k])}" for k, _, _ in PRINCIPLED_COLUMNS]
+    obj = ["mtllib cornellbox.mtl"]
+    local_scenes, instances, materials, lights = [], [], [], []
+    nv = nn = 0
+    for inst in b._instances:
+        (mesh,) = inst.meshes
+        (mat,) = np.unique(mesh.material_ids)
+        obj += [f"o {mesh.name}"] + [f"v {fmt(p)}" for p in mesh.vertices]
+        if mesh.normals is not None:
+            obj += [f"vn {fmt(n)}" for n in mesh.normals]
+        obj.append(f"usemtl {names[mat]}")
+        for k, face in enumerate(mesh.faces):
+            if mesh.normals is None:
+                obj.append("f " + " ".join(str(nv + a + 1) for a in face))
+            else:
+                obj.append("f " + " ".join(
+                    f"{nv + a + 1}//{nn + c + 1}"
+                    for a, c in zip(face, mesh.normal_idx[k])))
+        nv += len(mesh.vertices)
+        nn += 0 if mesh.normals is None else len(mesh.normals)
+        local_scenes.append({"name": mesh.name, "meshes": [mesh.name]})
+        instance = {"local_scene": mesh.name}
+        if mesh.normals is not None:  # a body: its material from the JSON
+            materials.append({"type": "cycles_principled_bsdf",
+                              "name": names[mat],
+                              **{k: rows[mat][k]
+                                 for k, _, _ in PRINCIPLED_COLUMNS}})
+            instance["materials"] = [names[mat]]
+        if inst.light_ids[0] is not None:
+            (lid,) = np.unique(inst.light_ids[0])
+            lights.append({"type": "area", "name": f"{mesh.name}_area",
+                           "emission": b._light_params[lid].tolist()})
+            instance["lights"] = [f"{mesh.name}_area"]
+        instances.append(instance)
+    for name, text in (("cornellbox.obj", obj), ("cornellbox.mtl", mtl)):
+        with open(os.path.join(dirpath, name), "w") as f:
+            f.write("\n".join(text) + "\n")
+    path = os.path.join(dirpath, "cornellbox.json")
+    with open(path, "w") as f:
+        json.dump({"wavefront_objs": [{"filepath": "cornellbox.obj"}],
+                   "materials": materials, "lights": lights,
+                   "local_scenes": local_scenes, "instances": instances,
+                   "render": {"width": 512, "height": 512, "max_pass": 8}},
+                  f, indent=1)
+    return path
+
+
+def load_file_scene(subdiv=3):
+    """`write_cornellbox` into a temporary directory under build/, then
+    the port's `load_scene_json` (which commits). Checks the faces and
+    the one emissive light group; returns the committed numpy scene."""
+    from pbrlab_tpu_torch.io.scene_json import load_scene_json
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="cornellbox_", dir=build) as d:
+        scene, render_cfg = load_scene_json(write_cornellbox(d, subdiv))
+    faces = int((scene["face_area"] > 0).sum())
+    groups = np.unique(scene["face_light"][scene["emissive_faces"]])
+    if subdiv == 3 and faces != FILE_FACES or len(groups) != 1 \
+            or render_cfg["width"] != 512:
+        raise AssertionError(f"file scene: {faces} faces, light groups "
+                             f"{groups}, render section {render_cfg}")
+    return scene
 
 
 def instanced_summary(s):
@@ -750,6 +852,80 @@ def v5i_phase(dense_v5i, scene, path_rays_, card):
     return rec
 
 
+def legacy_case(name, module, kw, tables, rays, any_hit, card):
+    """One legacy kernel vs its plain version on padded rays (v3 over its
+    prepared survivor lists): t, u, v, prim equal to the bit; times (the
+    kernel median of 10 CUDA-event launches, the plain version median of
+    3) and the bound of the tests each lane needs (`curve_need`'s slab
+    test is the legacy kernels' own)."""
+    from pbrlab_tpu_torch.ops import dense, dense_v3
+    from pbrlab_tpu_torch.ops.dense_curve import pad_rays
+
+    tris, aabb = tables
+    padded = pad_rays(*rays)
+    args = (tris, aabb)
+    if module is dense_v3:
+        args = (tris, *module.survivor_lists(aabb, *padded, **kw))
+    got = module._walk_cuda(*args, *padded, any_hit=any_hit)
+    ref = module._walk_ref(*args, *padded, any_hit=any_hit)
+    torch.cuda.synchronize()
+    for key, a, b in zip("tuvp", got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: {key} differs from the plain "
+                                 f"version on {int((a != b).sum())} lanes")
+    n = rays[0].shape[0]
+    hit = ref[3][:n] >= 0
+    err = float((got[0][:n][hit] - ref[0][:n][hit]).abs().max()) \
+        if hit.any() else 0.0
+    org, direction, min_t, max_t = rays
+    if any_hit and module is not dense:
+        tests, boxes = curve_need(aabb, org, direction, min_t, max_t, max_t,
+                                  hit)
+    else:  # closest (v1 answers the closest hit for any-hit queries too)
+        tests, boxes = curve_need(aabb, org, direction, min_t, max_t,
+                                  torch.where(hit, ref[0][:n], max_t))
+    ms = cuda_ms(lambda: module._walk_cuda(*args, *padded, any_hit=any_hit),
+                 reps=10)
+    plain = cuda_ms(lambda: module._walk_ref(*args, *padded,
+                                             any_hit=any_hit),
+                    reps=3, warmup=1)
+    b_ms, b_by = bound(nbytes(tris, aabb, *rays) + 16 * n,
+                       OPS_TRI * tests + OPS_BOX * boxes)
+    print(f"{name}: N={n} hits={int(hit.sum())} t, u, v, prim bit-equal to "
+          f"the plain version (max|dt|={err:.3g}); kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {tests} "
+          f"ray-triangle and {boxes} ray-box tests needed) ({card})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+
+
+def legacy_phase(modules, scene, path_rays_, card):
+    """The three legacy kernels at the file path's shapes (its legacy
+    tables: 2572 faces, 2688 columns, 21 clusters): closest at N_DUAL,
+    any-hit on the shadow rays, closest at N_SINGLE; v3 with its default
+    beam cull (the render's), timed also as a whole call with its
+    prelude."""
+    dual, single = path_rays_
+    tables = (scene["dense_tris"], scene["dense_cluster_aabb"])
+    shapes = (("closest", dual[:4], False), ("any-hit (shadow rays)",
+                                             (dual[0], *dual[4:]), True),
+              ("closest", single, False))
+    rec = {}
+    for key, module, kw in (("v3", modules["v3"], {"cull": "beam"}),
+                            ("v2", modules["v2"], {}),
+                            ("v1", modules["v1"], {})):
+        cases = [legacy_case(f"dense {key} {label}", module, kw, tables,
+                             rays, any_hit, card)
+                 for label, rays, any_hit in shapes]
+        rec[key] = cases[0]
+    v3 = modules["v3"]
+    whole = cuda_ms(lambda: v3.dense_trace_v3(*tables, *dual[:4]), reps=10)
+    print(f"dense_trace_v3 N={N_DUAL} closest, whole call (prelude: beam "
+          f"cull, argsort, padding): {whole:.4f} ms against "
+          f"{rec['v3']['ms']:.4f} ms in the kernel ({card})")
+    return rec
+
+
 def render_parity(name, scene_np, scene, **kw):
     from pbrlab_tpu_torch.render.integrator import render
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
@@ -775,8 +951,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pbrlab_tpu_torch.ops import (cuda_lib, dense_curve, dense_v4,
-                                      dense_v5, dense_v5i)
+    from pbrlab_tpu_torch.ops import (cuda_lib, dense, dense_curve, dense_v2,
+                                      dense_v3, dense_v4, dense_v5, dense_v5i)
     from pbrlab_tpu_torch.render.integrator import render_lanes_wavefront
     from pbrlab_tpu_torch.scene.demo import build_demo_scene
     from pbrlab_tpu_torch.scene.instanced import build_instanced
@@ -819,6 +995,16 @@ def main():
               f"{s['curve_pts'].shape[0]} segments, tables "
               f"{sorted(k for k in s if k.startswith(('dense_tris', 'v5s')))}"
               f", built in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    file_np = load_file_scene()
+    file_scene = scene_from_numpy(file_np, dev)
+    print(f"scene file (write_cornellbox + load_scene_json): "
+          f"{int((file_np['face_area'] > 0).sum())} faces, "
+          f"{len(file_np['emissive_faces'])} emissive in 1 light group, "
+          f"{file_np['materials']['kind'].shape[0]} materials, legacy "
+          f"tables {file_np['dense_tris'].shape[1]} columns in "
+          f"{file_np['dense_cluster_aabb'].shape[1]} clusters, written, "
+          f"loaded and committed in {time.perf_counter() - t0:.2f} s")
 
     # phase 3: kernel parity and times at each path's shapes
     rng = np.random.default_rng(SEED)
@@ -831,6 +1017,9 @@ def main():
     rec.update(curve_phase(dense_curve, scenes["hair"], rays["hair"], card))
     rec.update(v5i_phase(dense_v5i, scenes["instanced"], rays["instanced"],
                          card))
+    rec.update(legacy_phase({"v1": dense, "v2": dense_v2, "v3": dense_v3},
+                            file_scene, path_rays(file_scene, dev, rng),
+                            card))
 
     # phase 4: render parity, card (kernels) vs CPU (plain versions)
     render_parity("cornellbox", scenes_np["cornellbox"], scenes["cornellbox"],
@@ -844,31 +1033,44 @@ def main():
           f"{instanced_summary(cut)}")
     render_parity("instanced", cut, scene_from_numpy(cut, dev), width=32,
                   height=32, spp=2, **SETTINGS)
+    for backend in FILE_RENDERS:
+        render_parity(f"file {backend}", file_np, file_scene, width=32,
+                      height=32, spp=4, tri_backend=backend, **SETTINGS)
     print(f"phases 1-4 took {time.perf_counter() - t_start:.1f} s")
 
-    # phase 5: the five paths, each with its launches counted
+    # phase 5: the six paths (the file path twice), each render with its
+    # launches counted
     expect = {"cornellbox": (("v4", "dual"), ("v4", "single")),
               "mid": (("v5", "v5_dual"), ("v5", "v5")),
               "large": (("v5", "v5l"),),
               "hair": (("v4", "dual"), ("curve", "closest"),
                        ("curve", "any_hit")),
-              "instanced": (("v5i", "closest"), ("v5i", "any_hit"))}
+              "instanced": (("v5i", "closest"), ("v5i", "any_hit")),
+              "file dense3": (("v3", "closest"), ("v3", "any_hit")),
+              "file dense": (("v2", "closest"), ("v2", "any_hit"))}
     counters = {"v4": dense_v4.LAUNCHES, "v5": dense_v5.LAUNCHES,
-                "curve": dense_curve.LAUNCHES, "v5i": dense_v5i.LAUNCHES}
-    launches = {}
-    for name, (_, size, spp) in PATHS.items():
+                "curve": dense_curve.LAUNCHES, "v5i": dense_v5i.LAUNCHES,
+                "v1": dense.LAUNCHES, "v2": dense_v2.LAUNCHES,
+                "v3": dense_v3.LAUNCHES}
+    renders = [(name, scenes[name], size, spp, None)
+               for name, (_, size, spp) in PATHS.items()]
+    renders += [(f"file {backend}", file_scene, size, spp, backend)
+                for backend, (size, spp) in FILE_RENDERS.items()]
+    launches, all_counts = {}, {}
+    for name, scene, size, spp, backend in renders:
         for c in counters.values():
             for k in c:
                 c[k] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         total, iters = render_lanes_wavefront(
-            scenes[name], size, size, spp, seed=SEED, return_iters=True,
-            **SETTINGS)
+            scene, size, size, spp, seed=SEED, return_iters=True,
+            tri_backend=backend, **SETTINGS)
         img = (total.reshape(size, size, 3) / spp).cpu().numpy()
         wall = time.perf_counter() - t0
         counts = {f"{m}.{k}": v for m, c in counters.items()
                   for k, v in c.items()}
+        all_counts[name] = counts
         launches[name] = {f"{m}.{k}": counters[m][k]
                           for m, k in expect[name]}
         print(f"path {name}: render {size}x{size}x{spp} max_steps="
@@ -882,7 +1084,18 @@ def main():
                                  "non-negative, lit")
         if not all(launches[name].values()):
             raise AssertionError(f"{name} path missed a kernel: {counts}")
+        if backend and any(counters[m][k] for m in ("v4", "v5", "v5i")
+                           for k in counters[m]):
+            raise AssertionError(f"{name}: a trace left the forced "
+                                 f"backend: {counts}")
     print(f"all phases took {time.perf_counter() - t_start:.1f} s")
+    # v1 is on no render path, in JAX as here: its row carries the launches
+    # that phase 5's renders made, which must be none
+    v1_launches = sum(c["v1.closest"] + c["v1.any_hit"]
+                      for c in all_counts.values())
+    if v1_launches:
+        raise AssertionError(f"a render launched dense_v1_trace "
+                             f"{v1_launches} times: {all_counts}")
 
     v4_src = "pbrlab_tpu_torch/csrc/dense_v4.cu"
     v5_src = "pbrlab_tpu_torch/csrc/dense_v5.cu"
@@ -905,12 +1118,25 @@ def main():
             ("dense_v5i_trace", "pbrlab_tpu_torch/csrc/dense_v5i.cu",
              "pbrlab_tpu/ops/pallas/dense_v5i.py:66",
              inst["v5i.closest"] + inst["v5i.any_hit"], rec["v5i"])]
+    legacy_src = "pbrlab_tpu_torch/csrc/dense_legacy.cu"
+    f3, f2 = launches["file dense3"], launches["file dense"]
+    rows += [("dense_v3_trace", legacy_src,
+              "pbrlab_tpu/ops/pallas/dense_v3.py:56",
+              f3["v3.closest"] + f3["v3.any_hit"], rec["v3"]),
+             ("dense_v2_trace", legacy_src,
+              "pbrlab_tpu/ops/pallas/dense_v2.py:36",
+              f2["v2.closest"] + f2["v2.any_hit"], rec["v2"]),
+             ("dense_v1_trace", legacy_src,
+              "pbrlab_tpu/ops/pallas/dense.py:112", v1_launches, rec["v1"])]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": None}
         for name, src, rep, n, r in rows]}
+    record["kernels"][-1]["note"] = (
+        "on no render path (the JAX package reaches it only from "
+        "tests/test_dense.py); launched in phase 3 only")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,27 @@ STEPS = SEG_BLOCK // SLOTS
 LAUNCHES = {"closest": 0, "any_hit": 0}
 
 
+def morton_order(cent: np.ndarray) -> np.ndarray:
+    """int32 order of the points [P, 3] along the 30-bit Morton curve of
+    their bounding box (10 bits an axis), stable on equal codes: the
+    cluster order of the dense packings (pbrlab_tpu/ops/pallas/dense.py
+    :63-77, dense_curve.py's pack_segments)."""
+    lo = cent.min(axis=0)
+    ext = np.maximum(cent.max(axis=0) - lo, 1e-12)
+    q = np.clip(((cent - lo) / ext * 1023.0).astype(np.uint64), 0, 1023)
+
+    def spread(x):
+        x = (x | (x << 16)) & np.uint64(0x30000FF)
+        x = (x | (x << 8)) & np.uint64(0x300F00F)
+        x = (x | (x << 4)) & np.uint64(0x30C30C3)
+        x = (x | (x << 2)) & np.uint64(0x9249249)
+        return x
+
+    morton = spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) \
+        | (spread(q[:, 2]) << np.uint64(2))
+    return np.argsort(morton, kind="stable").astype(np.int32)
+
+
 def pack_segments(flat):
     """Host side: Morton-sort the sub-segments, pack rows + cluster AABBs.
 
@@ -72,22 +93,7 @@ def pack_segments(flat):
         aabb[3:6] = -1e30
         return packed, aabb, np.zeros((0,), np.int32)
 
-    cent = 0.5 * (p0 + p1)
-    lo = cent.min(axis=0)
-    ext = np.maximum(cent.max(axis=0) - lo, 1e-12)
-    q = np.clip(((cent - lo) / ext * 1023.0).astype(np.uint64), 0, 1023)
-
-    def spread(x):
-        x = (x | (x << 16)) & np.uint64(0x30000FF)
-        x = (x | (x << 8)) & np.uint64(0x300F00F)
-        x = (x | (x << 4)) & np.uint64(0x30C30C3)
-        x = (x | (x << 2)) & np.uint64(0x9249249)
-        return x
-
-    morton = spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) \
-        | (spread(q[:, 2]) << np.uint64(2))
-    order = np.argsort(morton, kind="stable").astype(np.int32)
-
+    order = morton_order(0.5 * (p0 + p1))
     p0, p1, r0, r1, u0, u1 = (a[order] for a in (p0, p1, r0, r1, u0, u1))
     e = p1 - p0
     Cpad = (C + SEG_BLOCK - 1) // SEG_BLOCK * SEG_BLOCK

@@ -12,21 +12,33 @@ unit direction.
 The triangle backend is the JAX package's choice on its accelerators:
 dense_v5i for an instanced scene (`scene.instanced`; prim is then the
 global instance-face id), dense_v5s past 18000 slots (the commit then adds
-the v5s tables), dense_v4 up to 256 clusters, dense_v5 between. Curves
-always go through dense_curve. dense_v5i and dense_curve have no dual
-kernel: a step launches their closest and their any-hit query.
+the v5s tables), dense_v4 up to 256 clusters, dense_v5 between. A caller
+may force another backend (the render's `tri_backend`, the counterpart of
+the JAX package's PBRLAB_TRACE_BACKEND), among them the legacy brute-force
+ones: "dense3" (dense_v3) and "dense" or "dense2" (dense_v2), whose
+Morton-order prim ids map back to slot ids through the scene's
+`dense_order`. A backend whose tables the scene lacks raises ValueError;
+the JAX package's threaded-BVH walk ("bvh") is not in the port. Curves
+always go through dense_curve. dense_v5i, dense_v5l / v5s, the legacy
+backends and dense_curve have no dual kernel: a step launches their
+closest and their any-hit query.
 """
 from __future__ import annotations
 
 import torch
 
 from .dense_curve import dense_curve_trace
+from .dense_v2 import dense_trace_v2
+from .dense_v3 import dense_trace_v3
 from .dense_v4 import dense_trace_v4, dense_trace_v4_dual
 from .dense_v5 import (dense_trace_v5, dense_trace_v5_dual, dense_trace_v5l,
                        dense_trace_v5s)
 from .dense_v5i import dense_trace_v5i
 
 MAX_DENSE4_CLUSTERS = 256
+# the legacy brute-force backends, whose prim ids are in Morton order
+LEGACY = {"dense3": dense_trace_v3, "dense": dense_trace_v2,
+          "dense2": dense_trace_v2}
 
 
 def _tri_backend(scene) -> str:
@@ -44,38 +56,65 @@ def _tri_backend(scene) -> str:
     return "dense5"
 
 
-def sparse_backend(scene) -> str | None:
+def _tables(scene, backend, *keys):
+    """The committed tables `keys` that `backend` reads; raises ValueError
+    when the scene's commit did not add them."""
+    missing = [k for k in keys if k not in scene]
+    if missing:
+        raise ValueError(f"triangle backend {backend!r} needs the tables "
+                         f"{missing}, which this scene's commit did not add")
+    return [scene[k] for k in keys]
+
+
+def sparse_backend(scene, tri_backend: str | None = None) -> str | None:
     """Backend for traces where most lanes are dead (unwindowed volume
-    substeps: only walking lanes trace). The packet kernels skip an
-    all-dead group at once, where dense_v4's cull and dense_v5s's sorts
-    run over every lane. None: the default is already that choice."""
-    return {"dense4": "dense5", "dense5s": "dense5l"}.get(_tri_backend(scene))
+    substeps: only walking lanes trace), derived from the scene's choice or
+    the forced `tri_backend`. The packet kernels skip an all-dead group at
+    once, where dense_v4's cull and dense_v5s's sorts run over every lane.
+    None: the choice is already right (the legacy backends keep theirs)."""
+    return {"dense4": "dense5", "dense5s": "dense5l"}.get(
+        tri_backend or _tri_backend(scene))
+
+
+def _remap_legacy_prim(scene, res):
+    """The legacy kernels' prim ids are in their own Morton order: map
+    them back to slot ids through dense_order."""
+    prim = res["prim"]
+    order = scene["dense_order"]
+    slot = order[torch.clamp(prim, min=0).to(torch.int64)] if order.numel() \
+        else prim
+    return {**res, "prim": torch.where(prim >= 0, slot, -1)}
 
 
 def _closest(scene, backend, org, direction, min_t, max_t, any_hit=False):
+    rays = (org, direction, min_t, max_t)
+    if backend in LEGACY:
+        tris, aabb, _ = _tables(scene, backend, "dense_tris",
+                                "dense_cluster_aabb", "dense_order")
+        return _remap_legacy_prim(scene, LEGACY[backend](
+            tris, aabb, *rays, any_hit=any_hit))
     if backend == "dense5i":
-        return dense_trace_v5i(scene["i5_tris"], scene["i5_node_aabb"],
-                               scene["i5_node_meta"], scene["i5_inst_inv"],
-                               scene["i5_inst_meta"], org, direction, min_t,
-                               max_t, any_hit=any_hit)
+        return dense_trace_v5i(*_tables(
+            scene, backend, "i5_tris", "i5_node_aabb", "i5_node_meta",
+            "i5_inst_inv", "i5_inst_meta"), *rays, any_hit=any_hit)
     if backend == "dense5s":
-        return dense_trace_v5s(scene["dense_tris_v5l"], scene["v5_node_aabb"],
-                               scene["v5_node_meta"], scene["v5s_roots"],
-                               scene["v5s_aabb"], org, direction, min_t,
-                               max_t, any_hit=any_hit)
+        return dense_trace_v5s(*_tables(
+            scene, backend, "dense_tris_v5l", "v5_node_aabb", "v5_node_meta",
+            "v5s_roots", "v5s_aabb"), *rays, any_hit=any_hit)
     if backend == "dense5l":
-        return dense_trace_v5l(scene["dense_tris_v5l"], scene["v5_node_aabb"],
-                               scene["v5_node_meta"], org, direction, min_t,
-                               max_t, any_hit=any_hit)
+        return dense_trace_v5l(*_tables(
+            scene, backend, "dense_tris_v5l", "v5_node_aabb",
+            "v5_node_meta"), *rays, any_hit=any_hit)
     if backend == "dense5":
-        return dense_trace_v5(scene["dense_tris_v4"], scene["v5_node_aabb"],
-                              scene["v5_node_meta"], org, direction, min_t,
-                              max_t, any_hit=any_hit)
+        return dense_trace_v5(*_tables(
+            scene, backend, "dense_tris_v4", "v5_node_aabb", "v5_node_meta"),
+            *rays, any_hit=any_hit)
     if backend == "dense4":
-        return dense_trace_v4(scene["dense_tris_v4"],
-                              scene["dense_cluster_aabb_v4"], org, direction,
-                              min_t, max_t, any_hit=any_hit)
-    raise ValueError(f"unknown triangle backend {backend!r}")
+        return dense_trace_v4(*_tables(
+            scene, backend, "dense_tris_v4", "dense_cluster_aabb_v4"),
+            *rays, any_hit=any_hit)
+    raise ValueError(f"unknown triangle backend {backend!r} (the port has "
+                     f"no threaded-BVH walk)")
 
 
 def has_curves(scene) -> bool:
@@ -149,20 +188,17 @@ def trace_scene_dual(scene, org, direction, min_t, max_t, sdir, smin_t,
     """Closest hit + shadow any-hit sharing the origin (the deferred-NEE
     step) -> (trace_scene dict, occluded bool). Triangles: one dual-kernel
     launch for dense4 and dense5, two launches (closest, then shadow) for
-    the large-scene and instanced backends, which have no dual kernel.
-    Curves: a closest
-    and an any-hit dense_curve launch."""
+    the large-scene, instanced and legacy backends, which have no dual
+    kernel. Curves: a closest and an any-hit dense_curve launch."""
     backend = backend or _tri_backend(scene)
+    rays = (org, direction, min_t, max_t, sdir, smin_t, smax_t)
     if backend == "dense4":
-        tri, occ = dense_trace_v4_dual(scene["dense_tris_v4"],
-                                       scene["dense_cluster_aabb_v4"],
-                                       org, direction, min_t, max_t,
-                                       sdir, smin_t, smax_t)
+        tri, occ = dense_trace_v4_dual(*_tables(
+            scene, backend, "dense_tris_v4", "dense_cluster_aabb_v4"), *rays)
     elif backend == "dense5":
-        tri, occ = dense_trace_v5_dual(scene["dense_tris_v4"],
-                                       scene["v5_node_aabb"],
-                                       scene["v5_node_meta"], org, direction,
-                                       min_t, max_t, sdir, smin_t, smax_t)
+        tri, occ = dense_trace_v5_dual(*_tables(
+            scene, backend, "dense_tris_v4", "v5_node_aabb", "v5_node_meta"),
+            *rays)
     else:
         tri = _closest(scene, backend, org, direction, min_t, max_t)
         occ = _closest(scene, backend, org, sdir, smin_t, smax_t,

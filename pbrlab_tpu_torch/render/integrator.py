@@ -25,9 +25,15 @@ from a narrow per-(instance, face) row plus the shared local face row,
 with the normals rotated into world space per lane. Textured scenes fetch
 base and subsurface colour from the quad-texel atlas at the hit's uv.
 
+The triangle backend is the scene's (`intersect._tri_backend`) unless the
+caller forces one with `tri_backend`, the counterpart of the JAX package's
+PBRLAB_TRACE_BACKEND knob: "dense4", "dense5", "dense5l", "dense5s",
+"dense5i", or a legacy one, "dense3" (dense_v3) or "dense" / "dense2"
+(dense_v2), whose tables every `commit` adds.
+
 Not in this slice: the differentiable scan path (`render_lanes`,
-`render_scan`), sharding, and the JAX package's PBRLAB_* environment
-knobs (ROADMAP A9, A15, A16).
+`render_scan`), sharding, and the JAX package's other PBRLAB_*
+environment knobs (ROADMAP A9, A15, A16).
 """
 from __future__ import annotations
 
@@ -270,8 +276,8 @@ def _nee(scene, pos, geom_normal, omega_out_local, ex, ey, ez,
 
 
 def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
-                   resolve_pending: bool = False,
-                   windowed: bool = False) -> PathState:
+                   resolve_pending: bool = False, windowed: bool = False,
+                   tri_backend: str | None = None) -> PathState:
     """Advance every lane by one trace.
 
     freeze_surface=True runs a volume-only substep: surface-mode lanes do
@@ -281,12 +287,15 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     volume-entry lanes' deferred NEE must resolve before the walk moves
     their origin. Full steps always resolve every pending query.
 
-    Traces take the scene's backend (`intersect._tri_backend`), except an
-    unwindowed substep (freeze_surface and not windowed), whose wavefront
-    is mostly dead lanes: it takes `sparse_backend` (dense_v5 for a dense_v4
-    scene, dense_v5l for a dense_v5s one), as the JAX package does. The
-    lanes of a windowed substep are mostly walkers, so it keeps the scene's
-    backend. The choice changes the work, never a hit.
+    Traces take the scene's backend (`intersect._tri_backend`), or
+    `tri_backend` where the caller forces one, except an unwindowed
+    substep (freeze_surface and not windowed), whose wavefront is mostly
+    dead lanes: it takes `sparse_backend` of that choice (dense_v5 for
+    dense_v4, dense_v5l for dense_v5s; the legacy backends keep theirs),
+    as the JAX package does. The lanes of a windowed substep are mostly
+    walkers, so it keeps the choice. The choice changes the work, never a
+    hit (the legacy kernels' group decisions aside: a grazing ray may hit
+    in one cluster walk and miss in another).
     """
     n = state.org.shape[0]
     dev = state.org.device
@@ -306,8 +315,9 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     max_t = torch.where(state.alive, max_t, -1.0)  # dead lanes: no traversal
 
     # ---- one trace launch: closest hit (+ the pending shadow queries) ----
-    backend = (sparse_backend(scene) if freeze_surface and not windowed
-               else None)
+    backend = tri_backend
+    if freeze_surface and not windowed:
+        backend = sparse_backend(scene, tri_backend) or backend
     nee_active = state.nee_maxt >= 0.0
     contribution = state.contribution
     resolved_now = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -570,7 +580,8 @@ def init_state(scene, width: int, height: int, sample_id, seed,
 def render_lanes_wavefront(scene, width: int, height: int, spp: int,
                            seed=0, max_steps: int = 32, k_volume: int = 0,
                            n_lanes: int = 65536, vol_window: int | None = None,
-                           flush_every: int = 4, return_iters: bool = False):
+                           flush_every: int = 4, return_iters: bool = False,
+                           tri_backend: str | None = None):
     """Full-occupancy forward render: persistent lanes + a pixel work queue
     (the reference's atomic tile queue, render.cc:203-222). Returns the
     summed radiance [width*height, 3] (divide by spp for the mean), and
@@ -589,7 +600,8 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
     vol_window >= n_lanes runs them on every lane before the sort. Per lane
     the window changes nothing, only the work done. Finished pixels park
     their sum in a pend slot that is scattered into the framebuffer once
-    every flush_every sub-iterations.
+    every flush_every sub-iterations. `tri_backend` forces the triangle
+    backend of every trace (see `wavefront_step`); None keeps the scene's.
     """
     if "mat_fat" not in scene:
         scene = build_fat_tables(scene)
@@ -661,7 +673,8 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
     def vol_substeps(st, windowed=False):
         for i in range(k_volume):
             st = wavefront_step(scene, st, freeze_surface=True,
-                                resolve_pending=(i == 0), windowed=windowed)
+                                resolve_pending=(i == 0), windowed=windowed,
+                                tri_backend=tri_backend)
         return st
 
     def vol_substeps_packed(p, windowed=False):
@@ -687,7 +700,7 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
                 state, packed[:, PC:PC + 3], packed[:, PC + 3:PC + 6],
                 packed[:, PC + 6].to(i32), next_pixel)
             stepped = state.alive
-            state = wavefront_step(scene, state)
+            state = wavefront_step(scene, state, tri_backend=tri_backend)
             if k_volume and not window_ok and bool(
                     (state.alive & (state.mode == MODE_VOLUME)).any()):
                 state = vol_substeps(state)
@@ -734,9 +747,12 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
 
 
 def render(scene, width: int, height: int, spp: int, seed=0,
-           max_steps: int = 32, k_volume: int = 0, **kwargs):
+           max_steps: int = 32, k_volume: int = 0,
+           tri_backend: str | None = None, **kwargs):
     """spp-sample mean radiance [H, W, 3] via the persistent-lane
-    wavefront; kwargs go to `render_lanes_wavefront`."""
+    wavefront; tri_backend forces the triangle backend (None: the
+    scene's); kwargs go to `render_lanes_wavefront`."""
     total = render_lanes_wavefront(scene, width, height, spp, seed,
-                                   max_steps, k_volume=k_volume, **kwargs)
+                                   max_steps, k_volume=k_volume,
+                                   tri_backend=tri_backend, **kwargs)
     return total.reshape(height, width, 3) / spp

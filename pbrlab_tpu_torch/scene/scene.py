@@ -5,7 +5,8 @@
 produce the same arrays for the tables the port reads: every triangle
 baked to world space, per-face columns in SAH slot order, the flattened
 light CDF, the dense_v4 / v5 trace tables, the dense_v5l / v5s tables of
-scenes past 18000 slots, the compaction signature boxes, and the hair
+scenes past 18000 slots, the compaction signature boxes, the Morton-packed
+tables of the legacy dense v1-v3 backends, and the hair
 tables of `commit_curves` (sub-segment columns in Morton order, the
 dense_curve rows and cluster boxes, the per-sub-segment tangent rows).
 `scene_from_numpy` moves a committed scene (from either package) to torch
@@ -13,8 +14,7 @@ tensors on a device; `build_fat_tables` packs the per-lane fat rows there,
 for a baked scene or an instanced one (`scene.instanced.build_instanced`),
 and the quad-texel texture atlas of a textured scene.
 
-Not ported yet: the tables of the legacy dense v1-v3 backends (ROADMAP
-B8). The threaded-BVH tables
+The threaded-BVH tables
 (`bvh_*`, and the curve BVH `cbvh_*` that only the JAX package's CPU
 `curve_trace` reads) are left out: the port's CPU traces are the plain
 versions of its kernels.
@@ -30,6 +30,7 @@ import torch
 from ..geometry.mesh import CubicBezierCurveMesh, TriangleMesh
 from ..ops.build import build_v5, leaf_major, subtree_cut
 from ..ops.curves import flatten_curves
+from ..ops.dense import pack_triangles
 from ..ops.dense_curve import pack_segments
 from .materials import MaterialBuilder, pack_material_fat
 from .textures import build_quad_atlas
@@ -317,6 +318,20 @@ def commit(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         roots, sub_aabb = subtree_cut(node_aabb5, node_meta5, max_nodes=64)
         scene["v5s_roots"] = roots
         scene["v5s_aabb"] = sub_aabb
+
+    # the legacy v1-v3 tables: a Morton pack of the VALID slots only; their
+    # sorted prim ids map back to slot ids through dense_order
+    if F:
+        vslots = np.nonzero(order >= 0)[0].astype(np.int32)
+    else:
+        vslots = np.zeros((0,), np.int32)
+    packed, cluster_aabb, m_order = pack_triangles(
+        scene["tri_v0"][vslots], scene["tri_e1"][vslots],
+        scene["tri_e2"][vslots])
+    scene["dense_tris"] = packed
+    scene["dense_cluster_aabb"] = cluster_aabb
+    scene["dense_order"] = (vslots[m_order] if m_order.size
+                            else np.zeros((0,), np.int32))
     return commit_curves(scene)
 
 

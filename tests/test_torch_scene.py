@@ -22,7 +22,8 @@ SLICE_KEYS = ("tri_v0", "tri_e1", "tri_e2", "face_ng", "face_area",
               "face_emission", "face_light_pdf", "emissive_faces",
               "light_cdf", "light_emission", "aabb_min", "aabb_max",
               "dense_tris_v4", "dense_cluster_aabb_v4", "v5_node_aabb",
-              "v5_node_meta", "sig_aabb")
+              "v5_node_meta", "sig_aabb", "dense_tris", "dense_cluster_aabb",
+              "dense_order")
 CURVE_KEYS = ("curve_pts", "curve_material", "curve_instance", "curve_p0",
               "curve_p1", "curve_r0", "curve_r1", "curve_seg", "curve_u0",
               "curve_u1", "dense_segs", "dense_seg_aabb", "curve_sub_fat")
@@ -58,6 +59,10 @@ def test_commit_matches_jax(kw):
         assert got["curve_pts"].shape == (0, 4, 4)
     if kw["subdiv"] == 3:  # the bench scene's sizes
         assert got["dense_tris_v4"].shape == (12, 3904)
+        # the legacy tables: 2572 valid faces in 21 clusters of 128
+        assert got["dense_tris"].shape == (12, 2688)
+        assert got["dense_cluster_aabb"].shape == (8, 21)
+        assert got["dense_order"].shape == (2572,)
         assert got["dense_cluster_aabb_v4"].shape == (8, 122)
         assert got["v5_node_aabb"].shape == (6, 243)
         assert np.isfinite(got["sig_aabb"]).all()  # 29 real subtrees
@@ -187,16 +192,23 @@ def test_instanced_colored_hair_matches_jax():
 
 
 def test_unported_features_raise():
-    """The legacy brute-force backends (ROADMAP B8) are not ported and
-    raise; instancing and textures, ported since, dispatch instead."""
+    """What the port lacks raises ValueError: the JAX package's
+    threaded-BVH walk ("bvh"), and a backend whose tables the scene's
+    commit did not add (a legacy backend on an instanced scene, dense5l
+    without the large-scene tables). The legacy brute-force backends
+    (ROADMAP B8), instancing and textures, ported since, dispatch."""
     from pbrlab_tpu_torch.ops.intersect import _closest, _tri_backend
 
     scene = scene_from_numpy(tdemo.build_demo_scene(subdiv=1)[0], "cpu")
     ray = (torch.zeros((4, 3)), torch.ones((4, 3)), torch.zeros(4),
            torch.ones(4))
-    for legacy in ("dense3", "dense"):
+    for legacy in ("dense3", "dense", "dense2"):
+        assert _closest(scene, legacy, *ray)["prim"].shape == (4,)
+    for backend, tables in (("bvh", scene), ("dense5l", scene),
+                            ("dense3", {k: v for k, v in scene.items()
+                                        if not k.startswith("dense_")})):
         with pytest.raises(ValueError):
-            _closest(scene, legacy, *ray)
+            _closest(tables, backend, *ray)
     assert _tri_backend({**scene, "i5_tris": torch.zeros((12, 32))}) \
         == "dense5i"
     scene["texture_atlas"] = torch.zeros((1, 2, 2, 3))
