@@ -29,7 +29,9 @@ render paths on one card:
 all at max_steps=12, k_volume=3. Phase 3 checks each kernel against its
 plain torch version at its path's shapes and times both (dense_curve also
 on a dense tuft of 8192 strands, 3584 clusters; the legacy v1 kernel,
-which no render path reaches, at the file path's shapes); phase 4 checks
+which no render path reaches, at the file path's shapes; the per-ray
+dense_v5i and dense_v5l kernels bit-equal to their twins, whose counts of
+each lane's tests print beside the need); phase 4 checks
 small renders on the card against the same renders on the CPU (the
 instanced one on a 16-instance cut of its scene, PARITY_INSTANCED; the
 file scene through both legacy backends); phase 5 renders each path with
@@ -510,34 +512,65 @@ def v5_need(scene, roots, rays, best_t, occ):
     return tri, box
 
 
-def v5_case(dense_v5, name, tris, leaf_major, scene, rays, card, roots=None,
-            plain_reps=3):
-    """One dense_v5 kernel vs `_packet_ref` on whole groups: parity,
-    times, and the bound of the tests each lane needs (`v5_need`)."""
+def v5_case(dense_v5, name, tris, scene, rays, card, roots=None,
+            per_ray=False, plain_reps=3):
+    """One dense_v5 kernel vs its plain version on whole groups: the
+    packet kernels (v5, dual) against `_packet_ref` (hit masks, occlusion,
+    t/u/v within RTOL), the per-ray v5l kernel (per_ray) against its twin
+    `_v5l_ref`, every output equal to the bit, with the twin's own counts
+    of tests; times, and the bound of the tests each lane needs
+    (`v5_need`)."""
     na, nm = scene["v5_node_aabb"], scene["v5_node_meta"]
     org, direction, min_t, max_t = rays[:4]
-    kw = {}
-    if len(rays) > 4:
+    work = None
+    if per_ray:
+        args = (tris, na, nm, roots, *rays)
+
+        def kernel():
+            return dense_v5._v5l_cuda(*args)
+
+        def plain_walk():
+            return dense_v5._v5l_ref(*args)
+
+        got = kernel()
+        *ref, work = dense_v5._v5l_ref(*args, counts=True)
+        torch.cuda.synchronize()
+        for key, x, y in zip("tuvp", got, ref):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: {key} differs from the twin "
+                                     f"on {int((x != y).sum())} lanes")
+        got, ref = (*got, None), (*ref, None)
+    else:
+        args = (tris, na, nm, *rays[:4])
         kw = dict(zip(("sdir", "smin_t", "smax_t"), rays[4:]))
-    args = (tris, leaf_major, na, nm, roots, org, direction, min_t, max_t)
-    got = dense_v5._packet_cuda(*args, **kw)
-    ref = dense_v5._packet_ref(*args, **kw)
-    torch.cuda.synchronize()
+
+        def kernel():
+            return dense_v5._packet_cuda(*args, **kw)
+
+        def plain_walk():
+            return dense_v5._packet_ref(*args, **kw)
+
+        got, ref = kernel(), plain_walk()
+        torch.cuda.synchronize()
     tri_tests, box_tests = v5_need(scene, roots, rays, ref[0], ref[4])
 
     def as_hits(r):
         return {"t": r[0], "u": r[1], "v": r[2], "prim": r[3]}
 
     err = check_hits(name, as_hits(got), as_hits(ref), got[4], ref[4])
-    ms = cuda_ms(lambda: dense_v5._packet_cuda(*args, **kw))
-    plain = cuda_ms(lambda: dense_v5._packet_ref(*args, **kw),
-                    reps=plain_reps, warmup=1)
+    ms = cuda_ms(kernel)
+    plain = cuda_ms(plain_walk, reps=plain_reps, warmup=1)
     ops = OPS_TRI * tri_tests + OPS_BOX * box_tests
     b_ms, b_by = bound(nbytes(tris, na, nm, *rays, *got[:4]), ops)
+    walked = ""
+    if work is not None:
+        walked = (f"; the walk did {int(work[:, 0].sum())} ray-triangle and "
+                  f"{int(work[:, 1].sum())} ray-box tests")
     print(f"{name}: N={org.shape[0]} hits={int((ref[3] >= 0).sum())} "
-          f"max|dt|={err:.3g}; kernel {ms:.4f} ms, plain walk {plain:.4f} ms,"
-          f" bound {b_ms:.4f} ms ({b_by}; {tri_tests} ray-triangle and "
-          f"{box_tests} ray-box tests needed) ({card})")
+          f"max|dt|={err:.3g}{' (bit-equal)' if per_ray else ''}; kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{tri_tests} ray-triangle and {box_tests} ray-box tests needed"
+          f"{walked}) ({card})")
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err)
 
@@ -547,9 +580,9 @@ def v5_phase(dense_v5, mid, large, mid_rays, large_rays, card):
     and without group roots and dense_v5s on the large scene."""
     dual, single = mid_rays
     rec = {"v5_dual": v5_case(dense_v5, "dense_v5 dual", mid["dense_tris_v4"],
-                              False, mid, dual, card),
+                              mid, dual, card),
            "v5": v5_case(dense_v5, "dense_v5 closest", mid["dense_tris_v4"],
-                         False, mid, single, card)}
+                         mid, single, card)}
     args = (mid["dense_tris_v4"], mid["v5_node_aabb"], mid["v5_node_meta"])
     anyh = dense_v5.dense_trace_v5(*args, *single, any_hit=True)
     ref = dense_v5.dense_trace_v5_ref(*args, *single)
@@ -559,13 +592,13 @@ def v5_phase(dense_v5, mid, large, mid_rays, large_rays, card):
 
     ldual = large_rays[0]
     tris = large["dense_tris_v5l"]
-    rec["v5l"] = v5_case(dense_v5, "dense_v5l whole tree", tris, True, large,
-                         ldual[:4], card, plain_reps=1)
+    rec["v5l"] = v5_case(dense_v5, "dense_v5l whole tree", tris, large,
+                         ldual[:4], card, per_ray=True, plain_reps=1)
     sub = large["v5s_roots"]
     roots = sub[torch.arange(N_DUAL // 1024, device=sub.device)
                 % sub.shape[0]].contiguous()
-    v5_case(dense_v5, "dense_v5l group roots", tris, True, large, ldual[:4],
-            card, roots=roots, plain_reps=1)
+    v5_case(dense_v5, "dense_v5l group roots", tris, large, ldual[:4], card,
+            roots=roots, per_ray=True, plain_reps=1)
 
     s_args = (tris, large["v5_node_aabb"], large["v5_node_meta"], sub,
               large["v5s_aabb"], *ldual[:4])
@@ -600,7 +633,7 @@ def v5s_over_plain_v5l(dense_v5, s_args):
 def v5s_kernel_share(dense_v5, s_args, reps=10):
     """Median over reps of the CUDA-event time of the v5l launches inside
     one dense_trace_v5s call."""
-    launch = dense_v5._packet_cuda
+    launch = dense_v5._v5l_cuda
     spans = []
 
     def timed(*a, **kw):
@@ -612,7 +645,7 @@ def v5s_kernel_share(dense_v5, s_args, reps=10):
         return out
 
     per_call = []
-    dense_v5._packet_cuda = timed
+    dense_v5._v5l_cuda = timed
     try:
         for _ in range(reps):
             spans.clear()
@@ -620,7 +653,7 @@ def v5s_kernel_share(dense_v5, s_args, reps=10):
             torch.cuda.synchronize()
             per_call.append(sum(a.elapsed_time(b) for a, b in spans))
     finally:
-        dense_v5._packet_cuda = launch
+        dense_v5._v5l_cuda = launch
     return float(np.median(per_call))
 
 
@@ -747,8 +780,7 @@ def v5i_need(scene, org, direction, min_t, cap, occluded=None):
     and the 32 triangles of every leaf it enters. An occluded any-hit lane
     needs one leaf on its shortest such path: the boxes on the way, one
     transform and 32 tests."""
-    from pbrlab_tpu_torch.ops.dense_v5 import _inv
-    from pbrlab_tpu_torch.ops.dense_v5i import _affine
+    from pbrlab_tpu_torch.ops.per_ray import _inv, to_instance
 
     na, nm = scene["i5_node_aabb"], scene["i5_node_meta"]
     inv, imeta = scene["i5_inst_inv"], scene["i5_inst_meta"]
@@ -778,16 +810,13 @@ def v5i_need(scene, org, direction, min_t, cap, occluded=None):
     for c0 in range(0, lane.shape[0], 1 << 16):
         ln, k = lane[c0:c0 + (1 << 16)], inst[c0:c0 + (1 << 16)]
         r = root[c0:c0 + (1 << 16)]
-        a = inv[:, k]  # [12, P]
-        lo = [x[:, 0] for x in _affine(
-            a, *(c[ln][:, None] for c in org.unbind(1)), True)]
-        ld = [x[:, 0] for x in _affine(
-            a, *(c[ln][:, None] for c in direction.unbind(1)), False)]
+        lo3, ld3 = to_instance(inv, k, org[ln], direction[ln])
+        lo, ld = lo3.unbind(1), ld3.unbind(1)
         i3 = [_inv(x) for x in ld]
         enters = slab_enters(na[:, r], i3, [o * i for o, i in zip(lo, i3)],
                              min_t[ln], cap[ln])
-        bv = lane_visits(na, levels, torch.stack(lo, 1), torch.stack(ld, 1),
-                         min_t[ln], cap[ln], r) & enters[None]
+        bv = lane_visits(na, levels, lo3, ld3, min_t[ln], cap[ln], r) \
+            & enters[None]
         f = full[ln]
         tri += 32 * int(bv[leaf][:, f].sum())
         box += 2 * int(bv[~leaf][:, f].sum())
@@ -803,23 +832,24 @@ def v5i_need(scene, org, direction, min_t, cap, occluded=None):
 
 
 def v5i_case(dense_v5i, name, scene, rays, any_hit, card):
-    """The dense_v5i kernel vs `_walk_ref` on whole groups: every output
-    equal to the bit; CUDA-event times (the plain walk timed on its one
-    parity call) and the bound of the work each lane needs (`v5i_need`)."""
+    """The dense_v5i kernel vs its twin `_walk_ref`: every output equal to
+    the bit; CUDA-event times (the twin timed on its one parity call, which
+    also counts each lane's tests), the bound of the work each lane needs
+    (`v5i_need`) beside the walk's own counts."""
     tables = [scene[k] for k in ("i5_tris", "i5_node_aabb", "i5_node_meta",
                                  "i5_inst_inv", "i5_inst_meta")]
     args = (*tables, *rays)
     got = dense_v5i._walk_cuda(*args, any_hit=any_hit)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    ref = dense_v5i._walk_ref(*args, any_hit=any_hit)
+    *ref, work = dense_v5i._walk_ref(*args, any_hit=any_hit, counts=True)
     ev[1].record()
     torch.cuda.synchronize()
     plain = ev[0].elapsed_time(ev[1])
     for key, a, b in zip("tuvp", got, ref):
         if not torch.equal(a, b):
-            raise AssertionError(f"{name}: {key} differs from the plain walk "
-                                 f"on {int((a != b).sum())} lanes")
+            raise AssertionError(f"{name}: {key} differs from the twin on "
+                                 f"{int((a != b).sum())} lanes")
     hit = ref[3] >= 0
     err = float((got[0][hit] - ref[0][hit]).abs().max()) if hit.any() \
         else 0.0
@@ -831,11 +861,13 @@ def v5i_case(dense_v5i, name, scene, rays, any_hit, card):
                  reps=10)
     b_ms, b_by = bound(nbytes(*tables, *rays, *got),
                        OPS_TRI * tri + OPS_BOX * box + OPS_XFORM * xf)
+    walked = work.sum(0).tolist()
     print(f"{name}: N={org.shape[0]} hits={int(hit.sum())} t, u, v, prim "
-          f"bit-equal to the plain walk (max|dt|={err:.3g}); kernel "
-          f"{ms:.4f} ms, plain walk {plain:.4f} ms (one call), bound "
-          f"{b_ms:.4f} ms ({b_by}; {tri} ray-triangle and {box} ray-box "
-          f"tests and {xf} transforms needed) ({card})")
+          f"bit-equal to the twin (max|dt|={err:.3g}); kernel {ms:.4f} ms, "
+          f"twin {plain:.4f} ms (one call), bound {b_ms:.4f} ms ({b_by}; "
+          f"{tri} ray-triangle and {box} ray-box tests and {xf} transforms "
+          f"needed; the walk did {walked[0]}, {walked[1]} and {walked[2]}) "
+          f"({card})")
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err)
 

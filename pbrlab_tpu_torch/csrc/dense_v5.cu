@@ -1,5 +1,4 @@
-// dense_v5 packet BVH traversal kernels for Hopper (sm_90a), plain C
-// interface.
+// dense_v5 BVH traversal kernels for Hopper (sm_90a), plain C interface.
 //
 // Replaces the three Pallas TPU kernels of pbrlab_tpu/ops/pallas/dense_v5.py:
 //   dense_v5_trace       <- _trace_kernel      (wrapper dense_trace_v5)
@@ -7,74 +6,77 @@
 //   dense_v5l_trace      <- _trace_kernel_dma  (wrapper dense_trace_v5l, and
 //                           through it the dense_trace_v5s scheduler)
 // Bound with ctypes from pbrlab_tpu_torch/ops/dense_v5.py, which also holds
-// the plain torch version of all three (_packet_ref).
+// the plain torch version of the two packet kernels (_packet_ref); the
+// plain twin of the per-ray v5l kernel is pbrlab_tpu_torch/ops/per_ray.py
+// `walk_ref`.
 //
-// Inputs: the triangle table, either attr-major [12, S] (dense_tris_v4) or
-// leaf-major [M, 12 * 32] (dense_tris_v5l: leaf m's attribute a of triangle
-// k at m * 384 + a * 32 + k), the BVH nodes node_aabb [6, Nn] (lo.xyz,
-// hi.xyz) and node_meta [2, Nn] (right child or -1 for a leaf; leaf slot
-// base), optional per-group root nodes [G], and the rays as contiguous
-// arrays (org/dir [N, 3], min_t/max_t [N]) with N = G * 1024.
+// Inputs: the triangle table, attr-major [12, S] (dense_tris_v4) for v5
+// and the dual kernel, leaf-major [M, 12 * 32] (dense_tris_v5l: leaf m's
+// attribute a of triangle k at m * 384 + a * 32 + k) for v5l, the BVH
+// nodes node_aabb [6, Nn] (lo.xyz, hi.xyz) and node_meta [2, Nn] (right
+// child or -1 for a leaf; leaf slot base), v5l's optional per-group root
+// nodes [G], and the rays as contiguous arrays (org/dir [N, 3],
+// min_t/max_t [N]) with N = G * 1024.
 //
-// Design: one thread block walks one 1024-ray group, one thread per ray,
-// exactly as the TPU kernel walks one group per grid step. The group-wide
-// scalars of the Pallas body become block reductions: a child's entry t
-// (jnp.min over the group's slab entries, :194), gmax after a leaf
-// (jnp.max, :245) and the any-hit exit (jnp.all, :250). Min and max are
-// exact in any order, so each reduction gives every thread the TPU's value
-// and every thread takes the same branch: the loop, its stack and its
-// __syncthreads stay uniform over the block. The walk, the near-first push
-// order, the cull test (`live`, :206) and the float ops of the triangle
-// test are the Pallas body's, in its order; the library is built with
-// --fmad=false and IEEE division, so the plain torch walk gives the same
-// bits.
+// dense_v5l_trace (per_ray.cuh): one thread walks one ray alone with its
+// own stack in local memory, 128 threads a block (512 blocks at 65536
+// lanes), ray i from node roots[i / 1024] or node 0; the leaf-major rows
+// take one float4 load per attribute and 4 triangles. It replaces a packet
+// walk of one 1024-ray group per block (the group union of nodes and
+// leaves, block barriers per node, 64 blocks at 65536 lanes). What bounds
+// it: the f32 operations of each lane's own tests (about 40 per
+// ray-triangle and 27 per ray-box test), in practice the latency of the
+// dependent node and leaf loads and the divergence of a warp's walks.
 //
-// The 128-entry (node, entry t) stack lives in shared memory. Every thread
-// writes the same entries at the same step, and only after that step's
-// reduction barrier; it pops only what it wrote itself. So a pop never
-// races with another thread's push, and no extra barrier is needed.
-//
-// One kernel template serves all three TPU kernels: {closest, any-hit,
-// dual} x {attr-major, leaf-major}, with root 0 or a per-group root. The
-// TPU split v5 from v5l only because its 1 MB scalar memory could not hold
-// the [12, S] table past ~20k slots. Here the two layouts differ only in
-// how the block stages a visited leaf's 384 floats into shared memory,
-// one float per thread (the counterpart of the v5l leaf DMA); the 32
-// triangle tests then read it as broadcasts, with no address registers
-// per attribute. The v5l kernel processes a leaf as it is visited,
-// where the TPU kernel processed it one leaf later, behind its DMA; that
-// changes how many nodes a group visits, never a hit (the JAX package's
-// own test holds v5l bit-equal to v5).
-//
-// What bounds it: f32 divides and multiply-adds of the ray-triangle tests
-// (about 40 operations per ray and triangle) and the block barriers of the
-// walk (one or two per node). Known first-cut weakness: the walk is per
-// group, so each ray pays for the union of its group's nodes and leaves,
-// and a block holds one group (a per-ray traversal is later speed work).
+// dense_v5_trace and dense_v5_trace_dual: one thread block walks one
+// 1024-ray group, one thread per ray, exactly as the TPU kernel walks one
+// group per grid step. The group-wide scalars of the Pallas body become
+// block reductions: a child's entry t (jnp.min over the group's slab
+// entries, :194), gmax after a leaf (jnp.max, :245) and the any-hit exit
+// (jnp.all, :250). Min and max are exact in any order, so each reduction
+// gives every thread the TPU's value and every thread takes the same
+// branch: the loop, its stack and its __syncthreads stay uniform over the
+// block. The walk, the near-first push order, the cull test (`live`, :206)
+// and the float ops of the triangle test are the Pallas body's, in its
+// order; the library is built with --fmad=false and IEEE division, so the
+// plain torch walk gives the same bits. The 128-entry (node, entry t) stack
+// lives in shared memory. Every thread writes the same entries at the same
+// step, and only after that step's reduction barrier; it pops only what it
+// wrote itself. So a pop never races with another thread's push, and no
+// extra barrier is needed. A visited leaf's 384 floats are staged in shared
+// memory, one float per thread; the 32 triangle tests then read it as
+// broadcasts. What bounds them: f32 divides and multiply-adds of the
+// ray-triangle tests (about 40 operations per ray and triangle) and the
+// block barriers of the walk (one or two per node). Known first-cut
+// weakness: each ray pays for the union of its group's nodes and leaves,
+// and a block holds one group (their per-ray redesign is later work).
 
-#include <cuda_runtime.h>
+#include "per_ray.cuh"
 
 namespace {
 
+using per_ray::inv_dir;
+using per_ray::kBig;
+using per_ray::kCluster;
+using per_ray::kSlop;
+using per_ray::pmax;
+using per_ray::pmin;
+
 constexpr int kGroup = 1024;
-constexpr int kCluster = 32;
 constexpr int kStack = 128;
 constexpr int kWarps = kGroup / 32;
 constexpr int kLeafFloats = 12 * kCluster;
-constexpr float kBig = 1e30f;
-constexpr float kSlop = 1.00000024f;
-constexpr float kEps = 1e-12f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRayThreads = 128;  // v5l: threads a block, one ray each
 
 enum Mode { kClosest = 0, kAnyHit = 1, kDual = 2 };
 
 struct Params {
-  const float* tris;   // [12, S] attr-major or [M, 384] leaf-major
-  int slots;           // S (row stride of the attr-major table)
+  const float* tris;   // [12, S] attr-major
+  int slots;           // S (row stride)
   const float* naabb;  // [6, Nn]
   const int* nmeta;    // [2, Nn]
   int nodes;           // Nn
-  const int* roots;    // [G] group root nodes, or null: node 0
   const float* org;
   const float* dir;
   const float* min_t;
@@ -88,19 +90,6 @@ struct Params {
   int* out_prim;
   unsigned char* out_occ;  // dual
 };
-
-// jnp / torch maximum and minimum: NaN in either operand gives NaN
-__device__ __forceinline__ float pmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float pmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ float inv_dir(float d) {
-  const float e = fabsf(d) < kEps ? (d < 0.f ? -kEps : kEps) : d;
-  return 1.0f / e;
-}
 
 struct Slab {  // one ray's slab-test terms against node boxes
   float ix, iy, iz, ox, oy, oz, mint;
@@ -156,7 +145,7 @@ __device__ __forceinline__ void block_reduce2(float& a, float& b,
   buf ^= 1;
 }
 
-template <int kMode, bool kLeafMajor>
+template <int kMode>
 __global__ void __launch_bounds__(kGroup, 1) v5_kernel(const Params p) {
   static_assert(kWarps == 32, "the reductions assume 32 warps");
   __shared__ int stk_id[kStack];
@@ -205,7 +194,7 @@ __global__ void __launch_bounds__(kGroup, 1) v5_kernel(const Params p) {
   float gmax_s = kMode == kDual ? (s_dead ? -1.f : smaxt) : best_t;
   block_reduce2<true>(gmax, gmax_s, red, buf);
   gmax = pmax(gmax, gmax_s);
-  stk_id[0] = p.roots ? p.roots[blockIdx.x] : 0;
+  stk_id[0] = 0;
   stk_tn[0] = -1e30f;
   int sp = gmax >= 0.f ? 1 : 0;
 
@@ -223,10 +212,7 @@ __global__ void __launch_bounds__(kGroup, 1) v5_kernel(const Params p) {
       if (threadIdx.x < kLeafFloats) {
         const int a = threadIdx.x / kCluster, k = threadIdx.x % kCluster;
         leaf[threadIdx.x] =
-            kLeafMajor ? __ldg(p.tris + static_cast<size_t>(base) * 12 +
-                               threadIdx.x)
-                       : __ldg(p.tris + static_cast<size_t>(a) * p.slots +
-                               base + k);
+            __ldg(p.tris + static_cast<size_t>(a) * p.slots + base + k);
       }
       __syncthreads();
 #pragma unroll 4
@@ -312,11 +298,11 @@ __global__ void __launch_bounds__(kGroup, 1) v5_kernel(const Params p) {
   if (kMode == kDual) p.out_occ[i] = occ ? 1 : 0;
 }
 
-template <int kMode, bool kLeafMajor>
+template <int kMode>
 int launch(const Params& p, int groups, void* stream) {
   if (groups > 0) {
-    v5_kernel<kMode, kLeafMajor><<<groups, kGroup, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(p);
+    v5_kernel<kMode><<<groups, kGroup, 0,
+                       static_cast<cudaStream_t>(stream)>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -342,6 +328,36 @@ Params rays(const float* tris, int slots, const float* naabb,
   return p;
 }
 
+struct RayParams {  // dense_v5l: n rays, each from its group's root
+  per_ray::Tables tb;
+  const int* roots;  // [n / 1024] or null: node 0
+  const float* org;
+  const float* dir;
+  const float* min_t;
+  const float* max_t;
+  int n;
+  float* out_t;
+  float* out_u;
+  float* out_v;
+  int* out_prim;
+};
+
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kRayThreads) v5l_kernel(const RayParams p) {
+  const int i = blockIdx.x * kRayThreads + threadIdx.x;
+  if (i >= p.n) return;
+  const per_ray::Frame f =
+      per_ray::make_frame(p.org[3 * i], p.org[3 * i + 1], p.org[3 * i + 2],
+                          p.dir[3 * i], p.dir[3 * i + 1], p.dir[3 * i + 2]);
+  per_ray::Hit h = {p.max_t[i], 0.f, 0.f, -1};
+  per_ray::walk<false, kAnyHit, true, kStack>(
+      p.tb, f, p.min_t[i], p.roots ? p.roots[i / kGroup] : 0, h);
+  p.out_t[i] = h.t;
+  p.out_u[i] = h.u;
+  p.out_v[i] = h.v;
+  p.out_prim[i] = h.prim;
+}
+
 }  // namespace
 
 // closest (any_hit 0) or any hit over the attr-major [12, slots] table
@@ -354,8 +370,8 @@ extern "C" int dense_v5_trace(const float* tris, int slots,
                               void* stream) {
   const Params p = rays(tris, slots, naabb, nmeta, nodes, org, dir, min_t,
                         max_t, out_t, out_u, out_v, out_prim);
-  return any_hit ? launch<kAnyHit, false>(p, groups, stream)
-                 : launch<kClosest, false>(p, groups, stream);
+  return any_hit ? launch<kAnyHit>(p, groups, stream)
+                 : launch<kClosest>(p, groups, stream);
 }
 
 // closest hit + shadow any-hit sharing the origin, attr-major table
@@ -371,11 +387,11 @@ extern "C" int dense_v5_trace_dual(
   p.smin_t = smin_t;
   p.smax_t = smax_t;
   p.out_occ = out_occ;
-  return launch<kDual, false>(p, groups, stream);
+  return launch<kDual>(p, groups, stream);
 }
 
-// closest or any hit over the leaf-major [M, 384] table, each group from
-// its root in `roots` (null: the whole tree)
+// closest or any hit over the leaf-major [M, 384] table, one thread per
+// ray, ray i from node roots[i / 1024] (roots null: the whole tree)
 extern "C" int dense_v5l_trace(const float* tris, const float* naabb,
                                const int* nmeta, int nodes, const int* roots,
                                const float* org, const float* dir,
@@ -383,9 +399,30 @@ extern "C" int dense_v5l_trace(const float* tris, const float* naabb,
                                int any_hit, int groups, float* out_t,
                                float* out_u, float* out_v, int* out_prim,
                                void* stream) {
-  Params p = rays(tris, 0, naabb, nmeta, nodes, org, dir, min_t, max_t,
-                  out_t, out_u, out_v, out_prim);
+  RayParams p = {};
+  p.tb.tris = tris;
+  p.tb.stride = kCluster;
+  p.tb.naabb = naabb;
+  p.tb.nmeta = nmeta;
+  p.tb.nodes = nodes;
   p.roots = roots;
-  return any_hit ? launch<kAnyHit, true>(p, groups, stream)
-                 : launch<kClosest, true>(p, groups, stream);
+  p.org = org;
+  p.dir = dir;
+  p.min_t = min_t;
+  p.max_t = max_t;
+  p.n = groups * kGroup;
+  p.out_t = out_t;
+  p.out_u = out_u;
+  p.out_v = out_v;
+  p.out_prim = out_prim;
+  if (groups > 0) {
+    const int blocks = (p.n + kRayThreads - 1) / kRayThreads;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (any_hit) {
+      v5l_kernel<true><<<blocks, kRayThreads, 0, s>>>(p);
+    } else {
+      v5l_kernel<false><<<blocks, kRayThreads, 0, s>>>(p);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,10 +3,10 @@ sm_90a into `build/`, loaded with ctypes.
 
 Each source compiles to an object file in its own nvcc process, all
 started together, and the objects link into one shared library whose name
-carries a hash of every source and the flags, so a stale build is never
-loaded. The kernels expose a plain C interface (device pointers, ints and
-the CUDA stream); the wrappers in `ops/dense_v4.py` and `ops/dense_v5.py`
-declare their argument types through `function`.
+carries a hash of every source, every header (`*.cuh`) and the flags, so
+a stale build is never loaded. The kernels expose a plain C interface
+(device pointers, ints and the CUDA stream); the wrappers in
+`ops/dense*.py` declare their argument types through `function`.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ def build_library():
     """Compile and link csrc/*.cu once per source and flag set. Returns
     (library path, nvcc log with each kernel's -Xptxas -v report)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(_CSRC.glob("*.cu*")):  # the sources and headers
         digest.update(src.name.encode() + src.read_bytes())
     out = _BUILD_DIR / f"libpbrlab_cuda_{digest.hexdigest()[:16]}.so"
     log = out.with_suffix(".log")
@@ -97,3 +97,15 @@ def check_tensor(kernel: str, x, dtype, shape, device):
             f"{kernel} kernel wants a contiguous {dtype} tensor of shape "
             f"{shape} on {device}; got {x.dtype} {tuple(x.shape)} on "
             f"{x.device} (contiguous={x.is_contiguous()})")
+
+
+def check_float4_rows(kernel: str, table, stride: int):
+    """Raise unless the kernel can read `table`'s leaf rows as float4:
+    16-byte aligned, rows `stride` floats apart, stride a multiple of 4.
+    The leaves' slot bases (multiples of 32) are checked where the tables
+    are built (`scene.instanced.build_instanced`)."""
+    if table.data_ptr() % 16 or stride % 4:
+        raise ValueError(f"{kernel} kernel reads its table as float4: it "
+                         "must be 16-byte aligned with a row stride that is "
+                         f"a multiple of 4 floats; got address "
+                         f"{table.data_ptr():#x}, stride {stride}")

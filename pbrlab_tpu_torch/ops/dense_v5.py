@@ -1,31 +1,41 @@
-"""dense_v5 triangle trace: packet BVH traversal of 1024-ray groups.
+"""dense_v5 triangle trace: BVH traversal, packet walks of 1024-ray
+groups (mid-size scenes) and a per-ray walk (large scenes).
 
-Port of pbrlab_tpu/ops/pallas/dense_v5.py. One CUDA kernel template,
-written by hand for Hopper (`csrc/dense_v5.cu`), replaces the three Pallas
-kernels:
+Port of pbrlab_tpu/ops/pallas/dense_v5.py. Hand-written CUDA kernels for
+Hopper (`csrc/dense_v5.cu`) replace the three Pallas kernels:
 
 * `dense_trace_v5` -> `dense_v5_trace` replaces `_trace_kernel`: closest
   hit (or any hit) over the attr-major [12, S] table (mid-size scenes);
 * `dense_trace_v5_dual` -> `dense_v5_trace_dual` replaces
   `_trace_kernel_dual`: the closest hit plus the deferred-NEE shadow
   any-hit from the same origin, in one walk;
-* `dense_trace_v5l` -> `dense_v5l_trace` replaces `_trace_kernel_dma`: the
-  same walk over the leaf-major [M, 3, 128] table, from a root node per
-  group when `group_roots` is given (large scenes).
+* `dense_trace_v5l` -> `dense_v5l_trace` replaces `_trace_kernel_dma`:
+  closest or any hit over the leaf-major [M, 3, 128] table, ray i from
+  node group_roots[i // 1024] when `group_roots` is given (large scenes).
 
 `dense_trace_v5s`, the subtree scheduler of large scenes, is plain torch
 around `dense_trace_v5l`, as it was XLA around the Pallas kernel.
 
-A group of 1024 rays descends the BVH together with one stack: a child is
-entered if any ray of the group can enter it before its best t, near
-child first, and a popped node is skipped once every ray's best t beats
-its entry t. `_packet_ref` is the plain torch version: every group walks
-its own stack in lock-step over the groups, one node per step. Each
-wrapper takes the kernel for CUDA tensors and `_packet_ref` for CPU
-tensors; `dense_trace_v5_ref`, `dense_trace_v5_dual_ref` and
-`dense_trace_v5l_ref` run `_packet_ref` on any device, which is what the
-kernels are compared with on the card. `LAUNCHES` counts kernel launches
-per kernel.
+dense_v5 and its dual walk as the TPU does: a group of 1024 rays
+descends the BVH together with one stack; a child is entered if any ray
+of the group can enter it before its best t, near child first, and a
+popped node is skipped once every ray's best t beats its entry t.
+`_packet_ref` is their plain torch version: every group walks its own
+stack in lock-step over the groups, one node per step.
+
+dense_v5l walks per ray (`csrc/per_ray.cuh`, one thread per ray): each
+lane has its own stack of STACK entries, culls against its own best t and
+pushes the far child first; any-hit ends a lane's walk after the first
+leaf that gives it a hit. It replaced a packet walk in which each ray paid
+for its group's union of nodes and leaves. `_v5l_ref` is its plain torch
+twin (`per_ray.walk_ref`, each lane's own pop sequence). Against the JAX
+package it may differ on exact-t ties and grazing rays (ROADMAP C3).
+
+Each wrapper takes the kernel for CUDA tensors and the plain version for
+CPU tensors; `dense_trace_v5_ref`, `dense_trace_v5_dual_ref` and
+`dense_trace_v5l_ref` run the plain version on any device, which is what
+the kernels are compared with on the card. `LAUNCHES` counts kernel
+launches per kernel.
 
 Contract (as the JAX package): rays (org, direction, min_t, max_t) are
 float32, max_t < min_t marks a dead lane; results are t, u, v (float32)
@@ -40,8 +50,9 @@ import ctypes
 import torch
 
 from ..core.math import INF
-from . import cuda_lib
+from . import cuda_lib, per_ray
 from .dense_v4 import _pad
+from .per_ray import _inv
 
 GROUP = 1024  # rays per group: one packet walk per group
 CLUSTER = 32  # triangles per BVH leaf (slot window)
@@ -55,12 +66,6 @@ _V5_ARGS = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P]
 _DUAL_ARGS = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
               _P, _P, _P, _P]
 _V5L_ARGS = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P]
-
-
-def _inv(d):
-    """Safe reciprocal of a direction component (|d| < 1e-12 -> +-1e-12)."""
-    return 1.0 / torch.where(torch.abs(d) < 1e-12,
-                             torch.where(d < 0.0, -1e-12, 1e-12), d)
 
 
 class _Lanes:
@@ -90,20 +95,9 @@ class _Lanes:
                            _BIG).amin(dim=1)
 
 
-def _leaf_rows(tris, leaf_major, base):
-    """The 12 attribute rows of each group's leaf (slot base [G]) ->
-    12 tensors [G, 1, 32]."""
-    if leaf_major:
-        rows = tris.reshape(-1, 12, CLUSTER)[base // CLUSTER]  # [G, 12, 32]
-        return rows[:, :, None, :].unbind(1)
-    slot = base[:, None] + torch.arange(CLUSTER, device=tris.device)
-    return tris[:, slot][:, :, None, :].unbind(0)
-
-
-def _packet_ref(tris, leaf_major, node_aabb, node_meta, roots, org,
-                direction, min_t, max_t, any_hit=False, sdir=None,
-                smin_t=None, smax_t=None):
-    """Plain torch version of the three kernels: each group walks its
+def _packet_ref(tris, node_aabb, node_meta, org, direction, min_t, max_t,
+                any_hit=False, sdir=None, smin_t=None, smax_t=None):
+    """Plain torch version of the two packet kernels: each group walks its
     stack as the Pallas body does, all groups in lock-step, one popped node
     per step (a group whose stack is empty idles). Rays are whole groups.
     Returns (t, u, v, prim, occluded or None); t = max_t where nothing was
@@ -127,8 +121,6 @@ def _packet_ref(tris, leaf_major, node_aabb, node_meta, roots, org,
     rows = torch.arange(g, device=dev)
     stk_id = torch.zeros((g, STACK), dtype=torch.int64, device=dev)
     stk_tn = torch.zeros((g, STACK), dtype=torch.float32, device=dev)
-    if roots is not None:
-        stk_id[:, 0] = roots
     stk_tn[:, 0] = -1e30
     sp = (gmax >= 0.0).to(torch.int64)
     while bool((sp > 0).any()):
@@ -142,8 +134,8 @@ def _packet_ref(tris, leaf_major, node_aabb, node_meta, roots, org,
         inner = live & (right >= 0)
         if bool(leaf.any()):
             base = node_meta[1][node].clamp(min=0).to(torch.int64)
-            (nx, ny, nz, k0, b1x, b1y, b1z, c1,
-             b2x, b2y, b2z, c2) = _leaf_rows(tris, leaf_major, base)
+            (nx, ny, nz, k0, b1x, b1y, b1z, c1, b2x, b2y, b2z, c2) = (
+                r[:, None, :] for r in per_ray.attr_major_rows(tris)(base))
             ox, oy, oz = (x[..., None] for x in c.o)
             dx, dy, dz = (x[..., None] for x in c.d)
             num = k0 - (ox * nx + oy * ny + oz * nz)  # [G, 1024, 32]
@@ -210,64 +202,104 @@ def _packet_ref(tris, leaf_major, node_aabb, node_meta, roots, org,
     return (*flat, None if occ is None else occ.reshape(-1))
 
 
-def _packet_cuda(tris, leaf_major, node_aabb, node_meta, roots, org,
-                 direction, min_t, max_t, any_hit=False, sdir=None,
-                 smin_t=None, smax_t=None):
-    """Launch one dense_v5 kernel on the current stream; same returns as
-    `_packet_ref` (any_hit may stop a group at its first hits)."""
+def _packet_cuda(tris, node_aabb, node_meta, org, direction, min_t, max_t,
+                 any_hit=False, sdir=None, smin_t=None, smax_t=None):
+    """Launch one dense_v5 packet kernel on the current stream; same
+    returns as `_packet_ref` (any_hit may stop a group at its first
+    hits)."""
     dev = org.device
     n = org.shape[0]
     g = n // GROUP
     nn = node_aabb.shape[1]
     f32, i32 = torch.float32, torch.int32
-    name = "dense_v5l" if leaf_major else "dense_v5"
-    checks = [(tris, f32, tuple(tris.shape)), (node_aabb, f32, (6, nn)),
+    checks = [(tris, f32, (12, tris.shape[1])), (node_aabb, f32, (6, nn)),
               (node_meta, i32, (2, nn)), (org, f32, (n, 3)),
               (direction, f32, (n, 3)), (min_t, f32, (n,)),
               (max_t, f32, (n,))]
-    if roots is not None:
-        checks.append((roots, i32, (g,)))
     if sdir is not None:
         checks += [(sdir, f32, (n, 3)), (smin_t, f32, (n,)),
                    (smax_t, f32, (n,))]
     for x, dtype, shape in checks:
-        cuda_lib.check_tensor(name, x, dtype, shape, dev)
-    want = (tris.shape[0], 3, 128) if leaf_major else (12, tris.shape[1])
-    if tuple(tris.shape) != want or n != g * GROUP:
-        raise ValueError(f"{name} wants a {want} table and whole groups of "
-                         f"{GROUP} rays; got {tuple(tris.shape)}, {n} rays")
+        cuda_lib.check_tensor("dense_v5", x, dtype, shape, dev)
+    if n != g * GROUP:
+        raise ValueError(f"dense_v5 wants whole groups of {GROUP} rays; "
+                         f"got {n}")
     t = torch.empty((n,), dtype=f32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     prim = torch.empty((n,), dtype=i32, device=dev)
     outs = [t.data_ptr(), u.data_ptr(), v.data_ptr(), prim.data_ptr()]
-    nodes = [node_aabb.data_ptr(), node_meta.data_ptr(), nn]
-    ray = [org.data_ptr(), direction.data_ptr(), min_t.data_ptr(),
-           max_t.data_ptr()]
+    head = [tris.data_ptr(), tris.shape[1], node_aabb.data_ptr(),
+            node_meta.data_ptr(), nn, org.data_ptr(), direction.data_ptr(),
+            min_t.data_ptr(), max_t.data_ptr()]
     occ = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if leaf_major:
-            kind = "v5l"
-            rc = cuda_lib.function("dense_v5l_trace", _V5L_ARGS)(
-                tris.data_ptr(), *nodes,
-                None if roots is None else roots.data_ptr(), *ray,
-                int(any_hit), g, *outs, stream)
-        elif sdir is None:
+        if sdir is None:
             kind = "v5"
             rc = cuda_lib.function("dense_v5_trace", _V5_ARGS)(
-                tris.data_ptr(), tris.shape[1], *nodes, *ray, int(any_hit),
-                g, *outs, stream)
+                *head, int(any_hit), g, *outs, stream)
         else:
             kind = "v5_dual"
             occ = torch.empty((n,), dtype=torch.uint8, device=dev)
             rc = cuda_lib.function("dense_v5_trace_dual", _DUAL_ARGS)(
-                tris.data_ptr(), tris.shape[1], *nodes, *ray,
-                sdir.data_ptr(), smin_t.data_ptr(), smax_t.data_ptr(), g,
-                *outs, occ.data_ptr(), stream)
+                *head, sdir.data_ptr(), smin_t.data_ptr(), smax_t.data_ptr(),
+                g, *outs, occ.data_ptr(), stream)
     cuda_lib.launched(f"dense_{kind}", rc)
     LAUNCHES[kind] += 1
     return t, u, v, prim, None if occ is None else occ.bool()
+
+
+def _v5l_ref(tris, node_aabb, node_meta, roots, org, direction, min_t,
+             max_t, any_hit=False, counts=False):
+    """Plain torch twin of the per-ray v5l kernel: every lane's own walk
+    from its group's root (roots [G], or None: node 0) over the
+    leaf-major table (`per_ray.walk_ref`). Returns (t, u, v, prim) and,
+    with counts, each lane's ray-triangle and ray-box tests [N, 3]; t =
+    max_t where nothing was hit."""
+    root = 0 if roots is None else roots.to(torch.int64).repeat_interleave(
+        GROUP)
+    return per_ray.walk_ref(per_ray.leaf_major_rows(tris), node_aabb,
+                            node_meta, org, direction, min_t, max_t, root,
+                            STACK, any_hit=any_hit, counts=counts)
+
+
+def _v5l_cuda(tris, node_aabb, node_meta, roots, org, direction, min_t,
+              max_t, any_hit=False):
+    """Launch the per-ray dense_v5l kernel on the current stream; same
+    returns as `_v5l_ref`."""
+    dev = org.device
+    n = org.shape[0]
+    g = n // GROUP
+    nn = node_aabb.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    checks = [(tris, f32, (tris.shape[0], 3, 128)),
+              (node_aabb, f32, (6, nn)), (node_meta, i32, (2, nn)),
+              (org, f32, (n, 3)), (direction, f32, (n, 3)),
+              (min_t, f32, (n,)), (max_t, f32, (n,))]
+    if roots is not None:
+        checks.append((roots, i32, (g,)))
+    for x, dtype, shape in checks:
+        cuda_lib.check_tensor("dense_v5l", x, dtype, shape, dev)
+    cuda_lib.check_float4_rows("dense_v5l", tris, CLUSTER)
+    if n != g * GROUP:
+        raise ValueError(f"dense_v5l wants whole groups of {GROUP} rays; "
+                         f"got {n}")
+    t = torch.empty((n,), dtype=f32, device=dev)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    prim = torch.empty((n,), dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = cuda_lib.function("dense_v5l_trace", _V5L_ARGS)(
+            tris.data_ptr(), node_aabb.data_ptr(), node_meta.data_ptr(), nn,
+            None if roots is None else roots.data_ptr(), org.data_ptr(),
+            direction.data_ptr(), min_t.data_ptr(), max_t.data_ptr(),
+            int(any_hit), g, t.data_ptr(), u.data_ptr(), v.data_ptr(),
+            prim.data_ptr(), stream)
+    cuda_lib.launched("dense_v5l", rc)
+    LAUNCHES["v5l"] += 1
+    return t, u, v, prim
 
 
 def _trace(tris, leaf_major, node_aabb, node_meta, org, direction, min_t,
@@ -279,18 +311,26 @@ def _trace(tris, leaf_major, node_aabb, node_meta, org, direction, min_t,
     args = [_pad(org, n_pad, 0.0), _pad(direction, n_pad, 1.0),
             _pad(min_t, n_pad, 0.0),
             torch.clamp(_pad(max_t, n_pad, -1.0), max=INF)]
-    kw = {"any_hit": any_hit}
-    if shadow is not None:
-        sdir, smin_t, smax_t = shadow
-        kw.update(sdir=_pad(sdir, n_pad, 1.0), smin_t=_pad(smin_t, n_pad, 0.0),
-                  smax_t=torch.clamp(_pad(smax_t, n_pad, -1.0), max=INF))
-    roots = None
-    if group_roots is not None:
-        roots = group_roots.to(torch.int32).contiguous()
-    walk = _packet_cuda if org.is_cuda and not plain else _packet_ref
-    t, u, v, prim, occ = walk(tris.contiguous(), leaf_major,
-                              node_aabb.contiguous(), node_meta.contiguous(),
-                              roots, *args, **kw)
+    kernel = org.is_cuda and not plain
+    occ = None
+    if leaf_major:
+        roots = None
+        if group_roots is not None:
+            roots = group_roots.to(torch.int32).contiguous()
+        walk = _v5l_cuda if kernel else _v5l_ref
+        t, u, v, prim = walk(tris.contiguous(), node_aabb.contiguous(),
+                             node_meta.contiguous(), roots, *args,
+                             any_hit=any_hit)
+    else:
+        kw = {"any_hit": any_hit}
+        if shadow is not None:
+            sdir, smin_t, smax_t = shadow
+            kw.update(sdir=_pad(sdir, n_pad, 1.0),
+                      smin_t=_pad(smin_t, n_pad, 0.0),
+                      smax_t=torch.clamp(_pad(smax_t, n_pad, -1.0), max=INF))
+        walk = _packet_cuda if kernel else _packet_ref
+        t, u, v, prim, occ = walk(tris.contiguous(), node_aabb.contiguous(),
+                                  node_meta.contiguous(), *args, **kw)
     hit = prim[:n] >= 0
     res = {"t": torch.where(hit, t[:n], INF), "u": u[:n], "v": v[:n],
            "prim": prim[:n]}

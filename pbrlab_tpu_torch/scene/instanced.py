@@ -206,6 +206,11 @@ def build_instanced(builder) -> Dict[str, np.ndarray]:
             np.where(nm[0] >= 0, nm[0] + blas_base[gi], -1),
             np.where(nm[0] < 0, nm[1] + slot_base[gi], 0)]))
     node_meta = np.concatenate(metas, axis=1).astype(np.int32)
+    # the kernel reads a leaf's rows as float4 from its slot base
+    bases = node_meta[1][(node_meta[0] < 0) & (node_meta[1] >= 0)]
+    if (bases % 32).any():
+        raise ValueError("BLAS leaf slot bases must be multiples of 32; "
+                         f"got {np.unique(bases % 32).tolist()} mod 32")
     # stack bound: TLAS depth + the deepest BLAS
     td = _depth(tlas_right)
     bd = max(_depth(local[gi][2][0]) for gi in tri_gis)

@@ -11,16 +11,20 @@ packages.
 - `build_tlas` and `build_instanced` must give JAX's arrays bit for bit,
   key by key (JAX's commit_curves adds the curve-BVH `cbvh_*` tables of
   its CPU curve walk, which the port does not build).
-- The plain dense_v5i walk against JAX's kernel in interpret mode on 2048
-  rays (dead lanes and clipped max_t among them). Both compute the same
-  float32 operations in the same order, but XLA:CPU may contract a product
-  and a sum into one rounding where torch rounds twice (ROADMAP C7): on
-  the textured scene 48 of 482 hit lanes get a t one or two ulps apart
-  (relative 4.1e-7) and u, v up to 2.9e-6 apart (measured on the CPU). So
-  hit masks must be equal, prim equal except on grazing lanes (< 1%, each
-  with t within rtol 1e-5 of JAX's or a barycentric margin below 1e-5), t
-  within rtol 1e-5 and u, v within atol 4e-6 where prim agrees, as in
-  test_torch_dense_v5.py.
+- The plain dense_v5i walk, the per-ray twin of the kernel
+  (`per_ray.walk_ref`: every lane its own stack and its own cull), against
+  JAX's kernel in interpret mode, which walks 1024-ray groups, on 2048
+  rays (dead lanes and clipped max_t among them). In exact arithmetic the
+  two find the same closest hits; in float they may differ on exact-t ties
+  (the first triangle a lane visits follows its own order) and on grazing
+  lanes (its own slab test misses a box its group entered), and XLA:CPU
+  may contract a product and a sum into one rounding where torch rounds
+  twice (ROADMAP C7). Measured on the CPU: hit masks and prim equal on all
+  427 hit lanes, closest and any-hit; t bit-equal on all but 43 (relative
+  4.2e-7). So hit masks must be equal, prim equal except on grazing lanes
+  (< 1%, each with t within rtol 1e-5 of JAX's or a barycentric margin
+  below 1e-5), t within rtol 1e-5 and u, v within atol 4e-6 where prim
+  agrees, as in test_torch_dense_v5.py.
 - The instanced shading rows (`_fetch_face_fat`) against JAX's.
 - One render of the textured SSS scene, 16x16x4 spp, max_steps 5, at the
   same n_lanes as JAX's `render`: the goldens' band (>= 99% of values
@@ -342,9 +346,10 @@ def test_instanced_memory_is_shared():
 
 @pytest.mark.requires_cuda
 def test_cuda_kernel_matches_plain(textured_np):
-    """The kernel vs the plain walk on the card: same operations, no FMA
-    contraction, IEEE division -> bit-equal t, u, v and prim, closest and
-    any-hit, at one partial group and at 65536 lanes."""
+    """The per-ray kernel vs its twin on the card: same operations, no FMA
+    contraction, IEEE division, the same pops per lane -> bit-equal t, u,
+    v and prim, closest and any-hit, at one partial group and at 65536
+    lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the dense_v5i kernel is CUDA-only)")
     for n, seed in ((1500, 7), (65536, 8)):
@@ -356,8 +361,5 @@ def test_cuda_kernel_matches_plain(textured_np):
             ref = dense_v5i.dense_trace_v5i_ref(*args, any_hit=any_hit)
             torch.cuda.synchronize()
             assert dense_v5i.LAUNCHES[kind] == before + 1
-            if any_hit:
-                assert torch.equal(got["prim"] >= 0, ref["prim"] >= 0)
-                continue
             for k in got:
-                assert torch.equal(got[k], ref[k]), k
+                assert torch.equal(got[k], ref[k]), (kind, k)
