@@ -30,11 +30,12 @@ all at max_steps=12, k_volume=3. Phase 3 checks each kernel against its
 plain torch version at its path's shapes and times both (dense_curve also
 on a dense tuft of 8192 strands, 3584 clusters; the legacy v1 kernel,
 which no render path reaches, at the file path's shapes; the per-ray
-dense_v5i and dense_v5l kernels bit-equal to their twins, whose counts of
-each lane's tests print beside the need); phase 4 checks
-small renders on the card against the same renders on the CPU (the
-instanced one on a 16-instance cut of its scene, PARITY_INSTANCED; the
-file scene through both legacy backends); phase 5 renders each path with
+dense_v5, dense_v5 dual, dense_v5l and dense_v5i kernels bit-equal to
+their twins, whose counts of each lane's tests print beside the need, and
+the dual's closest answer bit-equal to dense_v5's); phase 4 checks small
+renders on the card against the same renders on the CPU (the instanced
+one on a 16-instance cut of its scene, PARITY_INSTANCED; the file scene
+through both legacy backends); phase 5 renders each path with
 every launch counter set to 0 just before and read just after. Exits
 non-zero, printing no result, on any failure or without a CUDA card. The
 last lines are the kernels' JSON record, the card's name and power
@@ -472,13 +473,16 @@ def lane_visits(node_aabb, levels, org, direction, min_t, cap, lane_root):
     return vis
 
 
-def v5_need(scene, roots, rays, best_t, occ):
+def v5_need(scene, roots, rays, best_t, occ, any_hit=False):
     """(ray-triangle tests, ray-box tests) that these inputs need when each
     lane walks the BVH alone knowing its answer: a closest-hit lane tests
     the 32 triangles of every leaf it enters before its final best t and
-    the 2 children of every inner node it enters; a shadow lane that is not
-    occluded does the same up to its max t, an occluded one tests one leaf
-    and the children along the shortest path to a leaf it enters."""
+    the 2 children of every inner node it enters; a shadow (or any-hit)
+    lane that is not occluded does the same up to its max t, an occluded
+    one tests one leaf and the children along the shortest path to a leaf
+    it enters. rays: one closest query (org, dir, min_t, max_t), or with
+    any_hit one any-hit query whose answer is occ, or 7 arrays: a closest
+    query and a shadow query (dir, min_t, max_t) from the same origins."""
     na, nm = scene["v5_node_aabb"], scene["v5_node_meta"]
     levels = bvh_levels(nm)
     _, depth, is_leaf = levels
@@ -495,10 +499,7 @@ def v5_need(scene, roots, rays, best_t, occ):
         vis = vis & live[None]
         return (32 * int(vis[leaf].sum()), 2 * int(vis[~leaf].sum()))
 
-    tri, box = count(lane_visits(na, levels, org, direction, min_t, best_t,
-                                 lane_root), max_t >= min_t)
-    if len(rays) > 4:
-        sdir, smin_t, smax_t = rays[4:]
+    def shadow(sdir, smin_t, smax_t):
         vis = lane_visits(na, levels, org, sdir, smin_t, smax_t, lane_root)
         s_live = smax_t >= smin_t
         t_s, b_s = count(vis, s_live & ~occ)
@@ -506,86 +507,99 @@ def v5_need(scene, roots, rays, best_t, occ):
         shallow = torch.where(vis[leaf], leaf_depth[:, None],
                               1 << 30).amin(dim=0)
         hit = s_live & occ
-        tri += t_s + 32 * int(hit.sum())
-        box += b_s + 2 * int(torch.where(hit & (shallow < 1 << 30),
-                                         shallow - root_depth, 0).sum())
+        return (t_s + 32 * int(hit.sum()),
+                b_s + 2 * int(torch.where(hit & (shallow < 1 << 30),
+                                          shallow - root_depth, 0).sum()))
+
+    if any_hit:
+        return shadow(direction, min_t, max_t)
+    tri, box = count(lane_visits(na, levels, org, direction, min_t, best_t,
+                                 lane_root), max_t >= min_t)
+    if len(rays) > 4:
+        t_s, b_s = shadow(*rays[4:])
+        tri, box = tri + t_s, box + b_s
     return tri, box
 
 
 def v5_case(dense_v5, name, tris, scene, rays, card, roots=None,
-            per_ray=False, plain_reps=3):
-    """One dense_v5 kernel vs its plain version on whole groups: the
-    packet kernels (v5, dual) against `_packet_ref` (hit masks, occlusion,
-    t/u/v within RTOL), the per-ray v5l kernel (per_ray) against its twin
-    `_v5l_ref`, every output equal to the bit, with the twin's own counts
-    of tests; times, and the bound of the tests each lane needs
-    (`v5_need`)."""
+            leaf_major=False, any_hit=False, plain_reps=3):
+    """One per-ray dense_v5 kernel vs its twin on the same inputs: v5
+    (closest, or any_hit) on 4 ray arrays, the dual on 7 (with the shadow
+    query), v5l with leaf_major (roots: per-group root nodes); every
+    output equal to the bit (any-hit too: both stop a lane after the same
+    leaf), with the twin's own counts of tests. CUDA-event times, and the
+    bound of the tests each lane needs (`v5_need`)."""
     na, nm = scene["v5_node_aabb"], scene["v5_node_meta"]
-    org, direction, min_t, max_t = rays[:4]
-    work = None
-    if per_ray:
-        args = (tris, na, nm, roots, *rays)
-
-        def kernel():
-            return dense_v5._v5l_cuda(*args)
-
-        def plain_walk():
-            return dense_v5._v5l_ref(*args)
-
-        got = kernel()
-        *ref, work = dense_v5._v5l_ref(*args, counts=True)
-        torch.cuda.synchronize()
-        for key, x, y in zip("tuvp", got, ref):
-            if not torch.equal(x, y):
-                raise AssertionError(f"{name}: {key} differs from the twin "
-                                     f"on {int((x != y).sum())} lanes")
-        got, ref = (*got, None), (*ref, None)
+    if leaf_major:
+        args, kw = (tris, na, nm, roots, *rays), {}
+        launch, twin = dense_v5._v5l_cuda, dense_v5._v5l_ref
     else:
         args = (tris, na, nm, *rays[:4])
-        kw = dict(zip(("sdir", "smin_t", "smax_t"), rays[4:]))
+        kw = {"shadow": rays[4:]} if len(rays) > 4 else {}
+        launch, twin = dense_v5._v5_cuda, dense_v5._v5_ref
+    kw["any_hit"] = any_hit
 
-        def kernel():
-            return dense_v5._packet_cuda(*args, **kw)
+    def kernel():
+        return launch(*args, **kw)
 
-        def plain_walk():
-            return dense_v5._packet_ref(*args, **kw)
+    def plain_walk():
+        return twin(*args, **kw)
 
-        got, ref = kernel(), plain_walk()
-        torch.cuda.synchronize()
-    tri_tests, box_tests = v5_need(scene, roots, rays, ref[0], ref[4])
-
-    def as_hits(r):
-        return {"t": r[0], "u": r[1], "v": r[2], "prim": r[3]}
-
-    err = check_hits(name, as_hits(got), as_hits(ref), got[4], ref[4])
+    got = kernel()
+    *ref, work = twin(*args, counts=True, **kw)
+    torch.cuda.synchronize()
+    for key, x, y in zip(("t", "u", "v", "prim", "occluded"), got, ref):
+        if x is not None and not torch.equal(x, y):
+            raise AssertionError(f"{name}: {key} differs from the twin on "
+                                 f"{int((x != y).sum())} lanes")
+    hit = ref[3] >= 0
+    err = float((got[0][hit] - ref[0][hit]).abs().max()) if hit.any() \
+        else 0.0
+    occ = ref[4] if len(ref) > 4 else None
+    tri_tests, box_tests = v5_need(scene, roots, rays, ref[0],
+                                   hit if any_hit else occ, any_hit=any_hit)
     ms = cuda_ms(kernel)
     plain = cuda_ms(plain_walk, reps=plain_reps, warmup=1)
     ops = OPS_TRI * tri_tests + OPS_BOX * box_tests
     b_ms, b_by = bound(nbytes(tris, na, nm, *rays, *got[:4]), ops)
-    walked = ""
-    if work is not None:
-        walked = (f"; the walk did {int(work[:, 0].sum())} ray-triangle and "
-                  f"{int(work[:, 1].sum())} ray-box tests")
-    print(f"{name}: N={org.shape[0]} hits={int((ref[3] >= 0).sum())} "
-          f"max|dt|={err:.3g}{' (bit-equal)' if per_ray else ''}; kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-          f"{tri_tests} ray-triangle and {box_tests} ray-box tests needed"
-          f"{walked}) ({card})")
+    occluded = "" if occ is None else f" occluded={int(occ.sum())}"
+    print(f"{name}: N={rays[0].shape[0]} hits={int(hit.sum())}{occluded} "
+          f"bit-equal to the twin; kernel {ms:.4f} ms, twin {plain:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}; {tri_tests} ray-triangle and "
+          f"{box_tests} ray-box tests needed; the walk did "
+          f"{int(work[:, 0].sum())} and {int(work[:, 1].sum())}) ({card})")
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err)
 
 
 def v5_phase(dense_v5, mid, large, mid_rays, large_rays, card):
-    """dense_v5 (dual, single, any-hit) on the mid scene; dense_v5l with
-    and without group roots and dense_v5s on the large scene."""
+    """dense_v5 (dual at N_DUAL, closest at N_SINGLE and N_DUAL, any-hit on
+    the shadow rays) on the mid scene, the dual's closest answer equal to
+    the single kernel's; dense_v5l with and without group roots and
+    dense_v5s on the large scene."""
     dual, single = mid_rays
-    rec = {"v5_dual": v5_case(dense_v5, "dense_v5 dual", mid["dense_tris_v4"],
-                              mid, dual, card),
-           "v5": v5_case(dense_v5, "dense_v5 closest", mid["dense_tris_v4"],
-                         mid, single, card)}
-    args = (mid["dense_tris_v4"], mid["v5_node_aabb"], mid["v5_node_meta"])
-    anyh = dense_v5.dense_trace_v5(*args, *single, any_hit=True)
-    ref = dense_v5.dense_trace_v5_ref(*args, *single)
+    tris = mid["dense_tris_v4"]
+    rec = {"v5_dual": v5_case(dense_v5, "dense_v5 dual", tris, mid, dual,
+                              card),
+           "v5": v5_case(dense_v5, "dense_v5 closest", tris, mid, single,
+                         card)}
+    v5_case(dense_v5, "dense_v5 closest", tris, mid, dual[:4], card)
+    v5_case(dense_v5, "dense_v5 any-hit (shadow rays)", tris, mid,
+            (dual[0], *dual[4:]), card, any_hit=True)
+    args = (tris, mid["v5_node_aabb"], mid["v5_node_meta"], *dual[:4])
+    both = dense_v5._v5_cuda(*args, shadow=dual[4:])
+    alone = dense_v5._v5_cuda(*args)
+    torch.cuda.synchronize()
+    for key, x, y in zip("tuvp", both, alone):
+        if not torch.equal(x, y):
+            raise AssertionError(f"dense_v5 dual: closest {key} differs from "
+                                 f"dense_v5_trace's on "
+                                 f"{int((x != y).sum())} lanes")
+    print(f"dense_v5 dual: closest t, u, v, prim bit-equal to "
+          f"dense_v5_trace's on its {N_DUAL} rays")
+    args = (*args[:3], *single)
+    anyh = dense_v5.dense_trace_v5(*args, any_hit=True)
+    ref = dense_v5.dense_trace_v5_ref(*args)
     if not torch.equal(anyh["prim"] >= 0, ref["prim"] >= 0):
         raise AssertionError("dense_v5 any-hit: hit mask differs")
     print("dense_v5 any-hit: hit mask equal to the closest hit's")
@@ -593,12 +607,12 @@ def v5_phase(dense_v5, mid, large, mid_rays, large_rays, card):
     ldual = large_rays[0]
     tris = large["dense_tris_v5l"]
     rec["v5l"] = v5_case(dense_v5, "dense_v5l whole tree", tris, large,
-                         ldual[:4], card, per_ray=True, plain_reps=1)
+                         ldual[:4], card, leaf_major=True, plain_reps=1)
     sub = large["v5s_roots"]
     roots = sub[torch.arange(N_DUAL // 1024, device=sub.device)
                 % sub.shape[0]].contiguous()
     v5_case(dense_v5, "dense_v5l group roots", tris, large, ldual[:4], card,
-            roots=roots, per_ray=True, plain_reps=1)
+            roots=roots, leaf_major=True, plain_reps=1)
 
     s_args = (tris, large["v5_node_aabb"], large["v5_node_meta"], sub,
               large["v5s_aabb"], *ldual[:4])
@@ -1056,6 +1070,8 @@ def main():
     # phase 4: render parity, card (kernels) vs CPU (plain versions)
     render_parity("cornellbox", scenes_np["cornellbox"], scenes["cornellbox"],
                   width=32, height=32, spp=4, **SETTINGS)
+    render_parity("mid", scenes_np["mid"], scenes["mid"], width=32,
+                  height=32, spp=2, **SETTINGS)
     render_parity("large", scenes_np["large"], scenes["large"], width=32,
                   height=32, spp=2, **SETTINGS)
     render_parity("hair", scenes_np["hair"], scenes["hair"], width=32,
@@ -1166,6 +1182,14 @@ def main():
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": None}
         for name, src, rep, n, r in rows]}
+    sparse = {name: all_counts[name]["v5.v5"]
+              for name in ("cornellbox", "hair")}
+    v5_row = next(k for k in record["kernels"]
+                  if k["name"] == "dense_v5_trace")
+    v5_row["note"] = (
+        f"launches: the mid path's; the unwindowed volume substeps of the "
+        f"dense4 scenes add {sparse['cornellbox']} (cornellbox) and "
+        f"{sparse['hair']} (hair)")
     record["kernels"][-1]["note"] = (
         "on no render path (the JAX package reaches it only from "
         "tests/test_dense.py); launched in phase 3 only")

@@ -61,7 +61,9 @@ __global__ void __launch_bounds__(kThreads) v5i_kernel(const Params p) {
       per_ray::make_frame(p.org[3 * i], p.org[3 * i + 1], p.org[3 * i + 2],
                           p.dir[3 * i], p.dir[3 * i + 1], p.dir[3 * i + 2]);
   per_ray::Hit h = {p.max_t[i], 0.f, 0.f, -1};
-  per_ray::walk<true, kAnyHit, false, kStack>(p.tb, world, p.min_t[i], 0, h);
+  int2 stk[kStack];
+  per_ray::walk<true, kAnyHit, false, kStack>(p.tb, world, p.min_t[i], 0, h,
+                                              stk);
   p.out_t[i] = h.t;
   p.out_u[i] = h.u;
   p.out_v[i] = h.v;

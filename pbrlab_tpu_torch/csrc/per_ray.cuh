@@ -1,14 +1,15 @@
-// Per-ray BVH walk for Hopper (sm_90a), shared by the dense_v5l kernel
-// (csrc/dense_v5.cu) and the dense_v5i kernel (csrc/dense_v5i.cu).
+// Per-ray BVH walk for Hopper (sm_90a), shared by the dense_v5, dense_v5
+// dual and dense_v5l kernels (csrc/dense_v5.cu) and the dense_v5i kernel
+// (csrc/dense_v5i.cu).
 //
 // One thread walks one ray alone, with its own stack of (node, entry t)
 // pairs: no block reduction, no vote and no barrier anywhere in the walk.
 // At an inner node the thread tests both children's boxes against its own
 // best t and pushes the far child first, the near one second (popped
 // first); a popped node is skipped once `tn (1 - 1e-6) - 1e-6 > best t`,
-// the lane's own (the packet walks it replaces culled against the group's
-// largest best t). With the instance level (dense_v5i), a TLAS leaf maps
-// the ray into the instance's space (the transform in the Pallas order, the
+// the lane's own (the TPU's packet walks cull against the group's largest
+// best t). With the instance level (dense_v5i), a TLAS leaf maps the ray
+// into the instance's space (the transform in the Pallas order, the
 // direction not renormalised, the slab reciprocals recomputed), pushes the
 // BLAS root above the stack pointer it had there (`sp_base`), and the
 // thread returns to world space when its stack drops back to sp_base. A
@@ -26,16 +27,17 @@
 // k], where rows is the leaf's slot base b (attr-major, stride S) or b * 12
 // (leaf-major, stride 32), fixed per kernel by kLeafMajor. The table is
 // 16-byte aligned and S a multiple of 4 (the wrappers check it), and an
-// attr-major b is a multiple of 32 (build_instanced checks it; b * 12 is
-// aligned for any b), so one float4 load brings one attribute of 4
+// attr-major b is a multiple of 32 (build_v5 and build_instanced check it;
+// b * 12 is aligned for any b), so one float4 load brings one attribute of 4
 // triangles: 12 loads per 4 triangles. The tables are read through the
 // read-only cache.
 //
 // Stack: a lane needs at most (TLAS depth) + 1 + (BLAS depth) + 1 entries
 // (one pending sibling per level of its path, the BLAS root, and the two
-// children of the last inner node). The stack lives in the thread's local
-// memory, cached in L1: on dense_v5i it ran about twice as fast there as
-// in a shared-memory slice of 32-thread blocks (PERF.md).
+// children of the last inner node); one level: depth + 1. The stack lives
+// in the thread's local memory, cached in L1: on dense_v5i it ran about
+// twice as fast there as in a shared-memory slice of 32-thread blocks
+// (PERF.md).
 
 #pragma once
 
@@ -170,11 +172,12 @@ __device__ __forceinline__ void leaf(const Tables& tb, int base,
 
 // The walk of one ray from node `root`: h holds max t and no hit on entry
 // (a lane with max t < min t walks nothing) and the lane's answer on exit.
-// The stack holds kStack (node, entry t bits) entries.
+// stk is the thread's stack of kStack (node, entry t bits) entries; two
+// walks of one thread may reuse it one after the other.
 template <bool kInstanced, bool kAnyHit, bool kLeafMajor, int kStack>
 __device__ __forceinline__ void walk(const Tables& tb, const Frame& world,
-                                     float mint, int root, Hit& h) {
-  int2 stk[kStack];
+                                     float mint, int root, Hit& h,
+                                     int2 (&stk)[kStack]) {
   Frame cur = world;
   int sp = 0, sp_base = -1, fid = 0;
   if (h.t >= mint) {

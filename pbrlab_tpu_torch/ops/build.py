@@ -5,7 +5,7 @@ pbrlab_tpu/ops/pallas/dense_v5.py (`build_v5`, `leaf_major`,
 
 One leaf-32 binned-SAH build gives the dense_v4 triangle table and its
 cluster AABBs, the slot order that `scene.commit` reorders faces into,
-and the BVH node arrays of the dense_v5 packet traversal; `leaf_major` and
+and the BVH node arrays of the per-ray dense_v5 walks; `leaf_major` and
 `subtree_cut` add the large-scene (dense_v5l / v5s) tables.
 
 Packed triangle rows [12, S] (S = M * CLUSTER slots) are the linear forms
@@ -19,7 +19,10 @@ import numpy as np
 from ..geometry.bvh import build_bvh
 
 CLUSTER = 32  # triangles per cluster (BVH leaf slot window)
-STACK = 128  # dense_v5 traversal stack entries (checked at build)
+# dense_v5 traversal stack entries: a per-ray lane holds at most depth + 1
+# (one pending sibling per level, two children of the last inner node),
+# inside the build's check depth + 2 < STACK
+STACK = 128
 
 
 def build_v5(tri_v0: np.ndarray, tri_e1: np.ndarray, tri_e2: np.ndarray,

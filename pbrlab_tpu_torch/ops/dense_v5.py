@@ -1,5 +1,5 @@
-"""dense_v5 triangle trace: BVH traversal, packet walks of 1024-ray
-groups (mid-size scenes) and a per-ray walk (large scenes).
+"""dense_v5 triangle trace: per-ray BVH walks over the attr-major table
+(mid-size scenes) and the leaf-major one (large scenes).
 
 Port of pbrlab_tpu/ops/pallas/dense_v5.py. Hand-written CUDA kernels for
 Hopper (`csrc/dense_v5.cu`) replace the three Pallas kernels:
@@ -8,7 +8,7 @@ Hopper (`csrc/dense_v5.cu`) replace the three Pallas kernels:
   hit (or any hit) over the attr-major [12, S] table (mid-size scenes);
 * `dense_trace_v5_dual` -> `dense_v5_trace_dual` replaces
   `_trace_kernel_dual`: the closest hit plus the deferred-NEE shadow
-  any-hit from the same origin, in one walk;
+  any-hit from the same origin, in one launch;
 * `dense_trace_v5l` -> `dense_v5l_trace` replaces `_trace_kernel_dma`:
   closest or any hit over the leaf-major [M, 3, 128] table, ray i from
   node group_roots[i // 1024] when `group_roots` is given (large scenes).
@@ -16,26 +16,23 @@ Hopper (`csrc/dense_v5.cu`) replace the three Pallas kernels:
 `dense_trace_v5s`, the subtree scheduler of large scenes, is plain torch
 around `dense_trace_v5l`, as it was XLA around the Pallas kernel.
 
-dense_v5 and its dual walk as the TPU does: a group of 1024 rays
-descends the BVH together with one stack; a child is entered if any ray
-of the group can enter it before its best t, near child first, and a
-popped node is skipped once every ray's best t beats its entry t.
-`_packet_ref` is their plain torch version: every group walks its own
-stack in lock-step over the groups, one node per step.
-
-dense_v5l walks per ray (`csrc/per_ray.cuh`, one thread per ray): each
+All three walk per ray (`csrc/per_ray.cuh`, one thread per ray): each
 lane has its own stack of STACK entries, culls against its own best t and
 pushes the far child first; any-hit ends a lane's walk after the first
-leaf that gives it a hit. It replaced a packet walk in which each ray paid
-for its group's union of nodes and leaves. `_v5l_ref` is its plain torch
-twin (`per_ray.walk_ref`, each lane's own pop sequence). Against the JAX
-package it may differ on exact-t ties and grazing rays (ROADMAP C3).
+leaf that gives it a hit. The dual walks a lane's closest ray, then its
+shadow ray as an any-hit query from the same origin, so its closest
+answer is `dense_trace_v5`'s to the bit. They replace the TPU's packet
+walks of 1024-ray groups (one stack per group, a child entered if any ray
+of the group enters it), in which each ray paid for its group's union of
+nodes and leaves. `_v5_ref` and `_v5l_ref` are the plain torch twins
+(`per_ray.walk_ref`, each lane's own pop sequence). Against the JAX
+package they may differ on exact-t ties and grazing rays (ROADMAP C3).
 
-Each wrapper takes the kernel for CUDA tensors and the plain version for
-CPU tensors; `dense_trace_v5_ref`, `dense_trace_v5_dual_ref` and
-`dense_trace_v5l_ref` run the plain version on any device, which is what
-the kernels are compared with on the card. `LAUNCHES` counts kernel
-launches per kernel.
+Each wrapper takes the kernel for CUDA tensors and the twin for CPU
+tensors; `dense_trace_v5_ref`, `dense_trace_v5_dual_ref` and
+`dense_trace_v5l_ref` run the twin on any device, which is what the
+kernels are compared with on the card. `LAUNCHES` counts kernel launches
+per kernel.
 
 Contract (as the JAX package): rays (org, direction, min_t, max_t) are
 float32, max_t < min_t marks a dead lane; results are t, u, v (float32)
@@ -54,7 +51,7 @@ from . import cuda_lib, per_ray
 from .dense_v4 import _pad
 from .per_ray import _inv
 
-GROUP = 1024  # rays per group: one packet walk per group
+GROUP = 1024  # rays per v5l group root: the v5l walks take whole groups
 CLUSTER = 32  # triangles per BVH leaf (slot window)
 STACK = 128  # traversal stack entries (the build checks the depth)
 _BIG = 1e30
@@ -62,168 +59,54 @@ _BIG = 1e30
 LAUNCHES = {"v5": 0, "v5_dual": 0, "v5l": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_V5_ARGS = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P]
-_DUAL_ARGS = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-              _P, _P, _P, _P]
+# tris, slots, node_aabb, node_meta, nodes, org, dir, min_t, max_t
+_HEAD = [_P, _I, _P, _P, _I, _P, _P, _P, _P]
+_V5_ARGS = _HEAD + [_I, _I, _P, _P, _P, _P, _P]  # any_hit, n, outs, stream
+_DUAL_ARGS = _HEAD + [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
 _V5L_ARGS = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P]
 
 
-class _Lanes:
-    """One query's per-lane terms, [G, 1024] each."""
-
-    def __init__(self, org, direction, min_t, g):
-        self.o = [c.reshape(g, GROUP) for c in org.unbind(1)]
-        self.d = [c.reshape(g, GROUP) for c in direction.unbind(1)]
-        self.mint = min_t.reshape(g, GROUP)
-        self.inv = [_inv(c) for c in self.d]
-        self.oi = [o * i for o, i in zip(self.o, self.inv)]
-
-    def entry(self, box, cap):
-        """Group-wide entry t into each group's box ([6, G]): the least
-        slab entry t of the lanes that enter it before `cap`, else 1e30."""
-        near, far = [], []
-        for a in range(3):
-            t0 = box[a][:, None] * self.inv[a] - self.oi[a]
-            t1 = box[a + 3][:, None] * self.inv[a] - self.oi[a]
-            near.append(torch.minimum(t0, t1))
-            far.append(torch.maximum(t0, t1))
-        tnear = torch.maximum(torch.maximum(near[0], near[1]),
-                              torch.maximum(near[2], self.mint))
-        tfar = torch.minimum(torch.minimum(far[0], far[1]),
-                             torch.minimum(far[2], cap))
-        return torch.where(tnear <= tfar * 1.00000024, tnear,
-                           _BIG).amin(dim=1)
-
-
-def _packet_ref(tris, node_aabb, node_meta, org, direction, min_t, max_t,
-                any_hit=False, sdir=None, smin_t=None, smax_t=None):
-    """Plain torch version of the two packet kernels: each group walks its
-    stack as the Pallas body does, all groups in lock-step, one popped node
-    per step (a group whose stack is empty idles). Rays are whole groups.
-    Returns (t, u, v, prim, occluded or None); t = max_t where nothing was
-    hit."""
-    g = org.shape[0] // GROUP
-    dev = org.device
-    c = _Lanes(org, direction, min_t, g)
-    maxt = max_t.reshape(g, GROUP)
-    best_t = maxt.clone()
-    best_u = torch.zeros_like(best_t)
-    best_v = torch.zeros_like(best_t)
-    best_p = torch.full_like(best_t, -1, dtype=torch.int32)
-    gmax = best_t.amax(dim=1)
+def _v5_ref(tris, node_aabb, node_meta, org, direction, min_t, max_t,
+            any_hit=False, shadow=None, counts=False):
+    """Plain torch twin of the v5 and dual kernels: every lane's own walk
+    from node 0 over the attr-major table (`per_ray.walk_ref`), and with
+    shadow = (sdir, smin_t, smax_t) then its shadow ray's any-hit walk.
+    Returns (t, u, v, prim, occluded or None) and, with counts, each
+    lane's ray-triangle and ray-box tests [N, 3] over both walks; t =
+    max_t where nothing was hit."""
+    rows = per_ray.attr_major_rows(tris)
+    out = per_ray.walk_ref(rows, node_aabb, node_meta, org, direction,
+                           min_t, max_t, 0, STACK, any_hit=any_hit,
+                           counts=counts)
     occ = None
-    if sdir is not None:
-        s = _Lanes(org, sdir, smin_t, g)
-        smaxt = smax_t.reshape(g, GROUP)
-        s_dead = smaxt < s.mint
-        occ = torch.zeros_like(s_dead)
-        gmax = torch.maximum(gmax, torch.where(s_dead, -1.0, smaxt).amax(1))
-    rows = torch.arange(g, device=dev)
-    stk_id = torch.zeros((g, STACK), dtype=torch.int64, device=dev)
-    stk_tn = torch.zeros((g, STACK), dtype=torch.float32, device=dev)
-    stk_tn[:, 0] = -1e30
-    sp = (gmax >= 0.0).to(torch.int64)
-    while bool((sp > 0).any()):
-        act = sp > 0
-        sp = sp - act.to(torch.int64)
-        top = sp.clamp(min=0)
-        node = stk_id[rows, top]
-        live = act & (stk_tn[rows, top] * (1.0 - 1e-6) - 1e-6 <= gmax)
-        right = node_meta[0][node].to(torch.int64)
-        leaf = live & (right < 0)
-        inner = live & (right >= 0)
-        if bool(leaf.any()):
-            base = node_meta[1][node].clamp(min=0).to(torch.int64)
-            (nx, ny, nz, k0, b1x, b1y, b1z, c1, b2x, b2y, b2z, c2) = (
-                r[:, None, :] for r in per_ray.attr_major_rows(tris)(base))
-            ox, oy, oz = (x[..., None] for x in c.o)
-            dx, dy, dz = (x[..., None] for x in c.d)
-            num = k0 - (ox * nx + oy * ny + oz * nz)  # [G, 1024, 32]
-            ob1 = ox * b1x + oy * b1y + oz * b1z - c1
-            ob2 = ox * b2x + oy * b2y + oz * b2z - c2
-            t = num / (dx * nx + dy * ny + dz * nz)
-            u = ob1 + t * (dx * b1x + dy * b1y + dz * b1z)
-            v = ob2 + t * (dx * b2x + dy * b2y + dz * b2z)
-            ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                  & (t >= c.mint[..., None]))
-            # the first k of least t, then the kernels' strict t < best_t:
-            # what the in-order loop over k with a strict test keeps
-            tk, k = torch.where(ok, t, float("inf")).min(dim=2)
-            better = leaf[:, None] & (tk < best_t)
-            kk = k[..., None]
-            best_u = torch.where(better, torch.gather(u, 2, kk)[..., 0],
-                                 best_u)
-            best_v = torch.where(better, torch.gather(v, 2, kk)[..., 0],
-                                 best_v)
-            best_p = torch.where(better, (base[:, None] + k).to(torch.int32),
-                                 best_p)
-            best_t = torch.where(better, tk, best_t)
-            new_gmax = best_t.amax(dim=1)
-            if occ is not None:
-                sx, sy, sz = (x[..., None] for x in s.d)
-                ts = num / (sx * nx + sy * ny + sz * nz)
-                us = ob1 + ts * (sx * b1x + sy * b1y + sz * b1z)
-                vs = ob2 + ts * (sx * b2x + sy * b2y + sz * b2z)
-                oks = ((us >= 0.0) & (vs >= 0.0) & (us + vs <= 1.0)
-                       & (ts >= s.mint[..., None]) & (ts < smaxt[..., None]))
-                occ = occ | (leaf[:, None] & oks.any(dim=2))
-                new_gmax = torch.maximum(new_gmax, torch.where(
-                    s_dead | occ, -1.0, smaxt).amax(dim=1))
-            gmax = torch.where(leaf, new_gmax, gmax)
-            if any_hit:
-                # every live lane occluded (dead lanes never block this)
-                done = ((best_p >= 0) | (maxt < c.mint)).all(dim=1)
-                sp = torch.where(leaf & done, 0, sp)
-        if bool(inner.any()):
-            left = node + 1
-            rnode = right.clamp(min=0)
-            box_l = node_aabb[:, left.clamp(max=node_aabb.shape[1] - 1)]
-            box_r = node_aabb[:, rnode]
-            tn_l = c.entry(box_l, best_t)
-            tn_r = c.entry(box_r, best_t)
-            if occ is not None:
-                cap = torch.where(s_dead | occ, -_BIG, smaxt)
-                tn_l = torch.minimum(tn_l, s.entry(box_l, cap))
-                tn_r = torch.minimum(tn_r, s.entry(box_r, cap))
-            l_far = tn_l > tn_r
-            for push, nid, ntn in (
-                    (torch.maximum(tn_l, tn_r) < _BIG,
-                     torch.where(l_far, left, rnode),
-                     torch.maximum(tn_l, tn_r)),
-                    (torch.minimum(tn_l, tn_r) < _BIG,
-                     torch.where(l_far, rnode, left),
-                     torch.minimum(tn_l, tn_r))):
-                push = inner & push  # far child first, near popped first
-                at = sp.clamp(max=STACK - 1)
-                stk_id[rows, at] = torch.where(push, nid, stk_id[rows, at])
-                stk_tn[rows, at] = torch.where(push, ntn, stk_tn[rows, at])
-                sp = sp + push.to(torch.int64)
-    flat = [x.reshape(-1) for x in (best_t, best_u, best_v, best_p)]
-    return (*flat, None if occ is None else occ.reshape(-1))
+    if shadow is not None:
+        s_out = per_ray.walk_ref(rows, node_aabb, node_meta, org, *shadow, 0,
+                                 STACK, any_hit=True, counts=counts)
+        occ = s_out[3] >= 0
+    if not counts:
+        return (*out, occ)
+    work = out[4] if shadow is None else out[4] + s_out[4]
+    return (*out[:4], occ, work)
 
 
-def _packet_cuda(tris, node_aabb, node_meta, org, direction, min_t, max_t,
-                 any_hit=False, sdir=None, smin_t=None, smax_t=None):
-    """Launch one dense_v5 packet kernel on the current stream; same
-    returns as `_packet_ref` (any_hit may stop a group at its first
-    hits)."""
+def _v5_cuda(tris, node_aabb, node_meta, org, direction, min_t, max_t,
+             any_hit=False, shadow=None):
+    """Launch the dense_v5 kernel, or with shadow the dual one, on the
+    current stream; same returns as `_v5_ref`."""
     dev = org.device
     n = org.shape[0]
-    g = n // GROUP
     nn = node_aabb.shape[1]
     f32, i32 = torch.float32, torch.int32
     checks = [(tris, f32, (12, tris.shape[1])), (node_aabb, f32, (6, nn)),
               (node_meta, i32, (2, nn)), (org, f32, (n, 3)),
               (direction, f32, (n, 3)), (min_t, f32, (n,)),
               (max_t, f32, (n,))]
-    if sdir is not None:
-        checks += [(sdir, f32, (n, 3)), (smin_t, f32, (n,)),
-                   (smax_t, f32, (n,))]
+    if shadow is not None:
+        checks += zip(shadow, (f32,) * 3, ((n, 3), (n,), (n,)))
     for x, dtype, shape in checks:
         cuda_lib.check_tensor("dense_v5", x, dtype, shape, dev)
-    if n != g * GROUP:
-        raise ValueError(f"dense_v5 wants whole groups of {GROUP} rays; "
-                         f"got {n}")
+    # leaves start at multiples of CLUSTER slots (build_v5 checks it)
+    cuda_lib.check_float4_rows("dense_v5", tris, tris.shape[1])
     t = torch.empty((n,), dtype=f32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
@@ -235,16 +118,16 @@ def _packet_cuda(tris, node_aabb, node_meta, org, direction, min_t, max_t,
     occ = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if sdir is None:
+        if shadow is None:
             kind = "v5"
             rc = cuda_lib.function("dense_v5_trace", _V5_ARGS)(
-                *head, int(any_hit), g, *outs, stream)
+                *head, int(any_hit), n, *outs, stream)
         else:
             kind = "v5_dual"
             occ = torch.empty((n,), dtype=torch.uint8, device=dev)
             rc = cuda_lib.function("dense_v5_trace_dual", _DUAL_ARGS)(
-                *head, sdir.data_ptr(), smin_t.data_ptr(), smax_t.data_ptr(),
-                g, *outs, occ.data_ptr(), stream)
+                *head, *(x.data_ptr() for x in shadow), n, *outs,
+                occ.data_ptr(), stream)
     cuda_lib.launched(f"dense_{kind}", rc)
     LAUNCHES[kind] += 1
     return t, u, v, prim, None if occ is None else occ.bool()
@@ -304,37 +187,36 @@ def _v5l_cuda(tris, node_aabb, node_meta, roots, org, direction, min_t,
 
 def _trace(tris, leaf_major, node_aabb, node_meta, org, direction, min_t,
            max_t, any_hit=False, shadow=None, group_roots=None, plain=False):
-    """Pad to whole groups, walk (kernel on CUDA tensors unless plain),
-    unpad."""
+    """Walk (the kernel on CUDA tensors unless plain); v5l's rays padded to
+    whole groups for its group roots and unpadded after."""
     n = org.shape[0]
-    n_pad = (n + GROUP - 1) // GROUP * GROUP
-    args = [_pad(org, n_pad, 0.0), _pad(direction, n_pad, 1.0),
-            _pad(min_t, n_pad, 0.0),
-            torch.clamp(_pad(max_t, n_pad, -1.0), max=INF)]
+    tables = [x.contiguous() for x in (tris, node_aabb, node_meta)]
     kernel = org.is_cuda and not plain
     occ = None
     if leaf_major:
+        n_pad = (n + GROUP - 1) // GROUP * GROUP
+        rays = [_pad(org, n_pad, 0.0), _pad(direction, n_pad, 1.0),
+                _pad(min_t, n_pad, 0.0),
+                torch.clamp(_pad(max_t, n_pad, -1.0), max=INF)]
         roots = None
         if group_roots is not None:
             roots = group_roots.to(torch.int32).contiguous()
         walk = _v5l_cuda if kernel else _v5l_ref
-        t, u, v, prim = walk(tris.contiguous(), node_aabb.contiguous(),
-                             node_meta.contiguous(), roots, *args,
-                             any_hit=any_hit)
+        t, u, v, prim = walk(*tables, roots, *rays, any_hit=any_hit)
     else:
-        kw = {"any_hit": any_hit}
+        rays = [org.contiguous(), direction.contiguous(), min_t.contiguous(),
+                torch.clamp(max_t, max=INF)]
         if shadow is not None:
             sdir, smin_t, smax_t = shadow
-            kw.update(sdir=_pad(sdir, n_pad, 1.0),
-                      smin_t=_pad(smin_t, n_pad, 0.0),
-                      smax_t=torch.clamp(_pad(smax_t, n_pad, -1.0), max=INF))
-        walk = _packet_cuda if kernel else _packet_ref
-        t, u, v, prim, occ = walk(tris.contiguous(), node_aabb.contiguous(),
-                                  node_meta.contiguous(), *args, **kw)
+            shadow = (sdir.contiguous(), smin_t.contiguous(),
+                      torch.clamp(smax_t, max=INF))
+        walk = _v5_cuda if kernel else _v5_ref
+        t, u, v, prim, occ = walk(*tables, *rays, any_hit=any_hit,
+                                  shadow=shadow)
     hit = prim[:n] >= 0
     res = {"t": torch.where(hit, t[:n], INF), "u": u[:n], "v": v[:n],
            "prim": prim[:n]}
-    return res if occ is None else (res, occ[:n])
+    return res if occ is None else (res, occ)
 
 
 def dense_trace_v5(packed_tris, node_aabb, node_meta, org, direction, min_t,
@@ -348,7 +230,7 @@ def dense_trace_v5(packed_tris, node_aabb, node_meta, org, direction, min_t,
 def dense_trace_v5_dual(packed_tris, node_aabb, node_meta, org, direction,
                         min_t, max_t, sdir, smin_t, smax_t):
     """Closest hit + shadow any-hit sharing the origin `org` (deferred
-    NEE) in one walk -> (dict(t, u, v, prim), occluded bool)."""
+    NEE) in one launch -> (dict(t, u, v, prim), occluded bool)."""
     return _trace(packed_tris, False, node_aabb, node_meta, org, direction,
                   min_t, max_t, shadow=(sdir, smin_t, smax_t))
 

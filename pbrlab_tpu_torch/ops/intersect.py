@@ -69,9 +69,10 @@ def _tables(scene, backend, *keys):
 def sparse_backend(scene, tri_backend: str | None = None) -> str | None:
     """Backend for traces where most lanes are dead (unwindowed volume
     substeps: only walking lanes trace), derived from the scene's choice or
-    the forced `tri_backend`. The packet kernels skip an all-dead group at
-    once, where dense_v4's cull and dense_v5s's sorts run over every lane.
-    None: the choice is already right (the legacy backends keep theirs)."""
+    the forced `tri_backend`. In the per-ray dense_v5 and dense_v5l walks
+    a dead lane pushes nothing and its thread ends at once, where
+    dense_v4's cull and dense_v5s's sorts run over every lane. None: the
+    choice is already right (the legacy backends keep theirs)."""
     return {"dense4": "dense5", "dense5s": "dense5l"}.get(
         tri_backend or _tri_backend(scene))
 

@@ -16,6 +16,7 @@ from pbrlab_tpu.core import sampling as jsampling
 from pbrlab_tpu_torch.core import onb as tonb
 from pbrlab_tpu_torch.core import rng as trng
 from pbrlab_tpu_torch.core import sampling as tsampling
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(x):

@@ -34,6 +34,7 @@ from pbrlab_tpu_torch.ops import dense_curve
 from pbrlab_tpu_torch.ops.curves import flatten_curves, subsegment_bounds
 from pbrlab_tpu_torch.scene.demo import build_demo_scene
 from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 HAIR = dict(subdiv=1, with_monkey=False, with_lucy=False, with_hair=True)
 N = 3000  # not a multiple of the 128-lane group: exercises the padding

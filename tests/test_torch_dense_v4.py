@@ -23,6 +23,7 @@ from pbrlab_tpu_torch.ops import dense_v4
 from pbrlab_tpu_torch.ops.intersect import occluded_scene
 from pbrlab_tpu_torch.scene.demo import build_demo_scene
 from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 1500  # not a multiple of the 1024-ray group: exercises the padding
 

@@ -1,8 +1,8 @@
 """dense_v5 family of the port against the JAX package's Pallas kernels.
 
-On the CPU the port's wrappers run the plain versions (the packet walk
-`_packet_ref` for v5 and its dual, the per-ray twin `_v5l_ref` for v5l);
-the reference is pbrlab_tpu.ops.pallas.dense_v5 in interpret mode, on the
+On the CPU the port's wrappers run the plain versions (the per-ray twins
+`_v5_ref` for v5 and its dual, `_v5l_ref` for v5l); the reference is
+pbrlab_tpu.ops.pallas.dense_v5 in interpret mode, on the
 subdiv=1 scene and 512 rays of tests/test_dense.py (plus dead lanes,
 clipped max_t and shadow queries). Both compute the same float32 slab
 tests and linear forms in the same order, so hit masks and occlusion must
@@ -13,19 +13,23 @@ wins). u = (o.b1 - c1) + t (d.b1) cancels two terms of up to ~10 near an
 edge, so its rounding error is absolute, a few ulps of those terms: u and
 v also get atol 4e-6 (t gets 1e-6, as in test_torch_dense_v4.py).
 
-v5l walks per ray where JAX walks 1024-ray groups: the two may differ on
-exact-t ties and grazing lanes (ROADMAP C3). Measured on the CPU: hit
-masks and prim equal on every hit lane of the v5l cases (178 from the
-root, 149 from node 1) and of v5s (163); t bit-equal on all but 9 / 4 / 9
-(relative <= 1.1e-6, XLA:CPU's contractions), inside the bands above.
+The port walks per ray where JAX walks 1024-ray groups: the two may
+differ on exact-t ties and grazing lanes (ROADMAP C3), so prim may differ
+on < 1% of the hit lanes. Measured on the CPU: hit masks and prim equal on
+every hit lane of the v5l cases (178 from the root, 149 from node 1) and
+of v5s (163); t bit-equal on all but 9 / 4 / 9 (relative <= 1.1e-6,
+XLA:CPU's contractions), inside the bands above; of v5 (177) and the
+dual (162) too, with t bit-equal on all but 16 / 2 (relative <= 2.9e-6),
+the any-hit masks equal and `occluded` equal on every lane (124 of 512
+occluded).
 
 dense_trace_v5s is checked at passes 1, 2 and 3 against one JAX v5s run
 (passes 3: its paired, single and cleanup passes). The schedule changes
 which subtrees a ray visits first, never its closest hit, so every pass
 count must land in the same band.
 
-The requires_cuda test compares the CUDA kernels with the plain walk on
-the card. It imports no JAX, so it runs there with
+The requires_cuda test compares the CUDA kernels with their twins on the
+card. It imports no JAX, so it runs there with
 `python -m pytest tests/test_torch_dense_v5.py --noconftest -o addopts=""
 -m requires_cuda`.
 """
@@ -38,6 +42,7 @@ from pbrlab_tpu_torch.ops import dense_v5, intersect
 from pbrlab_tpu_torch.ops.build import leaf_major, subtree_cut
 from pbrlab_tpu_torch.scene.demo import build_demo_scene
 from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 512  # tests/test_dense.py's ray count (padded to one 1024-ray group)
 
@@ -188,16 +193,21 @@ def test_v5s_matches_jax(scene_np, v5s_jax, passes):
 
 
 def test_wrappers_take_plain_walk_on_cpu(scene_np):
-    """On CPU tensors the wrappers are the plain versions and launch no
-    kernel."""
+    """On CPU tensors the wrappers are the per-ray twins and launch no
+    kernel; the dual's closest answer is the single walk's to the bit and
+    its occlusion an any-hit walk's of the shadow rays."""
     rays = _rays(scene_np, 300, 5)
     before = dict(dense_v5.LAUNCHES)
     args = _torch(scene_np, V5_KEYS, rays)
     got, occ = dense_v5.dense_trace_v5_dual(*args)
     ref, ref_occ = dense_v5.dense_trace_v5_dual_ref(*args)
+    single = dense_v5.dense_trace_v5(*args[:7])
     for k in got:
         assert torch.equal(got[k], ref[k])
+        assert torch.equal(got[k], single[k])
     assert torch.equal(occ, ref_occ)
+    twin = dense_v5._v5_ref(*args[:3], args[3], *args[7:10], any_hit=True)
+    assert torch.equal(occ, twin[3] >= 0)
     dense_v5.dense_trace_v5s(*_torch(scene_np, V5S_KEYS, rays[:4]))
     assert dense_v5.LAUNCHES == before
 
@@ -231,11 +241,12 @@ def test_backend_dispatch(scene_np, monkeypatch):
 
 @pytest.mark.requires_cuda
 def test_cuda_kernels_match_plain(scene_np, monkeypatch):
-    """Kernels vs their plain versions on the card (the packet walk for
-    v5 and its dual, the per-ray twin for v5l): same ops, no FMA
-    contraction, IEEE division -> bit-equal closest hits and occlusion;
-    any-hit equal hit masks. dense_trace_v5s is held against itself over
-    the plain v5l."""
+    """Kernels vs their per-ray twins on the card: same ops in the same
+    order, no FMA contraction, IEEE division -> bit-equal closest hits and
+    occlusion, and the dual's closest hits bit-equal to the single
+    kernel's; any-hit equal hit masks. dense_trace_v5s is held against
+    itself over the plain v5l. The wrapper refuses a table the kernel
+    cannot read as float4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the dense_v5 kernels are CUDA-only)")
     for n, seed in ((1500, 7), (65536, 8)):
@@ -246,9 +257,12 @@ def test_cuda_kernels_match_plain(scene_np, monkeypatch):
         ref, ref_occ = dense_v5.dense_trace_v5_dual_ref(*args)
         torch.cuda.synchronize()
         assert dense_v5.LAUNCHES["v5_dual"] == before["v5_dual"] + 1
+        single = dense_v5.dense_trace_v5(*args[:7])
         for k in got:
             assert torch.equal(got[k], ref[k]), k
+            assert torch.equal(got[k], single[k]), k
         assert torch.equal(occ, ref_occ)
+
         def v5s_ref(*a, **kw):
             with monkeypatch.context() as m:
                 m.setattr(dense_v5, "dense_trace_v5l",
@@ -273,5 +287,8 @@ def test_cuda_kernels_match_plain(scene_np, monkeypatch):
             for k in single:
                 assert torch.equal(single[k], ref1[k]), (fn.__name__, k)
             assert torch.equal(anyh["prim"] >= 0, ref1["prim"] >= 0)
-    with pytest.raises(ValueError):  # not whole groups
-        dense_v5._packet_cuda(*args[:3], *[x[:100] for x in args[3:7]])
+    tris = args[0]  # 4 bytes past a 16-byte boundary: no float4 loads
+    shifted = torch.empty(tris.numel() + 1, device="cuda")[1:].view(
+        tris.shape)
+    with pytest.raises(ValueError, match="float4"):
+        dense_v5._v5_cuda(shifted, *(x.contiguous() for x in args[1:7]))

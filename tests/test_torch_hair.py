@@ -13,10 +13,18 @@ Against the float64 oracle (tests/oracle_hair.py, a transcription of the
 reference C++, not of either package) the band is float32 rounding of the
 same chain: rtol 1e-3 on 99% of values. The Monte Carlo checks of
 tests/test_hair.py:88-115 run on the port with the same seeds and bounds.
+This module runs at torch's default thread count; the other port test
+modules take one thread (tests/torch_threads.py). The rgb closure
+parameters also run as the first transcendental call of a fresh process
+(ROADMAP C10: MKL's one-time set-up races when that call runs on several
+threads, unless `pbrlab_tpu_torch`'s import makes it first on one).
 
 IO: numpy on both sides, so every array must be equal exactly.
 """
+import os
 import struct
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +37,7 @@ from pbrlab_tpu.shading import hair as jhair
 from pbrlab_tpu_torch.io import cyhair as tcyhair
 from pbrlab_tpu_torch.shading import hair as thair
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 4096
 H_VALUES = (-0.9, -0.3, 0.0, 0.5, 0.95)
 
@@ -88,6 +97,46 @@ def test_param_to_bsdf_matches_jax(coloring):
     for name, g, w in zip(jb._fields, tb, jb):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-7, err_msg=name)
+
+
+_FRESH = """
+import sys
+import numpy as np
+import torch
+from pbrlab_tpu_torch.shading import hair
+lanes = np.load(sys.argv[1] + "/lanes.npz")
+mat = {k: torch.from_numpy(lanes[k]) for k in lanes.files if k != "h"}
+b = hair.param_to_bsdf(mat, torch.from_numpy(lanes["h"]))
+np.savez(sys.argv[1] + f"/bsdf{sys.argv[2]}.npz",
+         **{k: v.numpy() for k, v in b._asdict().items()})
+"""
+FRESH_PROCESSES = 8
+
+
+def test_param_to_bsdf_in_fresh_processes(tmp_path):
+    """The rgb case of test_param_to_bsdf_matches_jax, computed by the port
+    in 8 fresh processes at once at torch's default thread count, so that
+    it is each process's first transcendental call on several threads
+    (C10). Without the set-up call in `pbrlab_tpu_torch`'s import, about
+    one such process in twenty returns one chunk off by ~1e-4."""
+    _, mat, h = _lanes(0, 20)
+    np.savez(tmp_path / "lanes.npz", h=h, **mat)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("OMP_NUM_THREADS", "MKL_NUM_THREADS")}
+    procs = [subprocess.Popen([sys.executable, "-c", _FRESH, str(tmp_path),
+                               str(i)], cwd=REPO, stderr=subprocess.PIPE,
+                              text=True, env=dict(env, PYTHONPATH=REPO))
+             for i in range(FRESH_PROCESSES)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err
+    jb = jhair.param_to_bsdf({k: jnp.asarray(v) for k, v in mat.items()},
+                             jnp.asarray(h))
+    for i in range(FRESH_PROCESSES):
+        got = np.load(tmp_path / f"bsdf{i}.npz")
+        for name, w in zip(jb._fields, jb):
+            np.testing.assert_allclose(got[name], np.asarray(w), rtol=1e-5,
+                                       atol=1e-7, err_msg=f"{name} ({i})")
 
 
 @pytest.mark.parametrize("coloring", [0, 1], ids=["rgb", "melanin"])

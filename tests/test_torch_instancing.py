@@ -45,6 +45,7 @@ import torch
 
 from pbrlab_tpu_torch.core.math import INF
 from pbrlab_tpu_torch.ops import dense_v5i, intersect
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 2048
 I5_KEYS = ("i5_tris", "i5_node_aabb", "i5_node_meta", "i5_inst_inv",

@@ -41,6 +41,7 @@ from pbrlab_tpu.scene.scene import scene_to_device
 from pbrlab_tpu_torch.render import integrator as tint
 from pbrlab_tpu_torch.scene.demo import build_demo_scene
 from pbrlab_tpu_torch.scene.scene import build_fat_tables, scene_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN_PATH = "tests/goldens/cpu_goldens.npz"
 GOLDEN_SCENES = {  # tests/test_goldens.py:25-41
@@ -62,15 +63,42 @@ def scenes():
             build_fat_tables(scene_from_numpy(scene_np, "cpu")))
 
 
-@pytest.fixture()
-def jax_dense4(monkeypatch):
+def _force_jax_dense4(mp):
     """Force the JAX package onto dense_v4, interpreted on the CPU
     (`_closest_tri` / `_occluded_tri` import the wrapper at call time)."""
     from pbrlab_tpu.ops.pallas import dense_v4 as jv4
 
-    monkeypatch.setenv("PBRLAB_TRACE_BACKEND", "dense4")
-    monkeypatch.setattr(jv4, "dense_trace_v4",
-                        partial(jv4.dense_trace_v4, interpret=True))
+    mp.setenv("PBRLAB_TRACE_BACKEND", "dense4")
+    mp.setattr(jv4, "dense_trace_v4",
+               partial(jv4.dense_trace_v4, interpret=True))
+
+
+@pytest.fixture()
+def jax_dense4(monkeypatch):
+    _force_jax_dense4(monkeypatch)
+
+
+@pytest.fixture(scope="module")
+def jax_states():
+    """JAX init (32x32 camera lanes) + `steps` full steps on dense_v4, as
+    `jax_states(scene_j, steps)`: each (scene, steps) computed once in
+    this module, step k from step k - 1. JAX states are immutable, and
+    each test hands the port its own copy (`_to_torch`)."""
+    cache = {}
+
+    def state(scene_j, steps):
+        key = (id(scene_j), steps)
+        if key not in cache:
+            if steps == 0:
+                new = jint.init_state(scene_j, 32, 32, jnp.uint32(0), 3)
+            else:
+                prev = state(scene_j, steps - 1)
+                with pytest.MonkeyPatch.context() as mp:
+                    _force_jax_dense4(mp)
+                    new = jint.wavefront_step(scene_j, prev, 0)
+            cache[key] = (scene_j, new)  # the scene stays alive: its id
+        return cache[key][1]
+    return state
 
 
 def _to_torch(state):
@@ -99,19 +127,11 @@ def _assert_state_close(got, want):
                                            err_msg=name)
 
 
-def _jax_state_after(scene_j, steps):
-    """JAX init (32x32 camera lanes) + `steps` full steps."""
-    state = jint.init_state(scene_j, 32, 32, jnp.uint32(0), 3)
-    for _ in range(steps):
-        state = jint.wavefront_step(scene_j, state, 0)
-    return state
-
-
 @pytest.mark.parametrize("steps", [0, 2])
-def test_full_step_matches_jax(scenes, jax_dense4, steps):
+def test_full_step_matches_jax(scenes, jax_states, jax_dense4, steps):
     """A full step: dual trace (closest + pending shadow queries)."""
     scene_j, scene_t = scenes
-    state = _jax_state_after(scene_j, steps)
+    state = jax_states(scene_j, steps)
     if steps:
         assert (np.asarray(state.nee_maxt) >= 0).any()
     want = jint.wavefront_step(scene_j, state, 0)
@@ -121,11 +141,12 @@ def test_full_step_matches_jax(scenes, jax_dense4, steps):
 
 @pytest.mark.parametrize("resolve_pending", [True, False],
                          ids=["first-substep-dual", "later-substep-single"])
-def test_volume_substep_matches_jax(scenes, jax_dense4, resolve_pending):
+def test_volume_substep_matches_jax(scenes, jax_states, jax_dense4,
+                                    resolve_pending):
     """A windowed volume substep: the first resolves the walkers' pending
     NEE (dual trace), later ones trace closest only."""
     scene_j, scene_t = scenes
-    state = _jax_state_after(scene_j, 2)
+    state = jax_states(scene_j, 2)
     walking = np.asarray(state.alive & (state.mode == jint.MODE_VOLUME))
     assert walking.sum() > 10
     want = jint.wavefront_step(scene_j, state, 0, freeze_surface=True,
@@ -148,8 +169,8 @@ STEP_KINDS = {  # wavefront_step arguments of each kind of step
 
 @pytest.mark.parametrize("kind", list(STEP_KINDS))
 @pytest.mark.parametrize("backend", ["dense5", "dense5s"])
-def test_step_matches_jax_on_v5_backends(scenes, jax_dense4, monkeypatch,
-                                         backend, kind):
+def test_step_matches_jax_on_v5_backends(scenes, jax_states, jax_dense4,
+                                         monkeypatch, backend, kind):
     """One step of each kind on a scene dispatched to dense_v5 (the
     cluster limit patched to 0) or dense_v5s (its tables added to the
     subdiv=1 scene): full and windowed steps take that backend, the
@@ -163,7 +184,7 @@ def test_step_matches_jax_on_v5_backends(scenes, jax_dense4, monkeypatch,
     from pbrlab_tpu_torch.ops import intersect as tisect
 
     scene_j, scene_t = scenes
-    state = _jax_state_after(scene_j, 2)
+    state = jax_states(scene_j, 2)
     if backend == "dense5s":
         tris = np.asarray(scene_j["dense_tris_v4"])
         cut = (np.asarray(scene_j["v5_node_aabb"]),
@@ -202,26 +223,26 @@ def hair_scenes():
 
 
 @pytest.mark.parametrize("kind", ["full", "first-substep"])
-def test_hair_step_matches_jax(hair_scenes, jax_dense4, kind):
+def test_hair_step_matches_jax(hair_scenes, jax_states, jax_dense4, kind):
     """A full step and a first substep of the hair scene, from the state
     after two JAX steps: the triangles through dense_v4, the curves
     through dense_curve (JAX interprets it on the CPU whenever its
     triangle backend is a dense one), hair lanes shaded with the
     Principled Hair BSDF. Same band as the triangle steps."""
     scene_j, scene_t = hair_scenes
-    state = _jax_state_after(scene_j, 2)
+    state = jax_states(scene_j, 2)
     assert int(np.asarray(state.alive).sum()) > 100
     want = jint.wavefront_step(scene_j, state, 0, **STEP_KINDS[kind])
     got = tint.wavefront_step(scene_t, _to_torch(state), **STEP_KINDS[kind])
     _assert_state_close(got, want)
 
 
-def test_colored_hair_step_matches_jax(hair_scenes, jax_dense4):
+def test_colored_hair_step_matches_jax(hair_scenes, jax_states, jax_dense4):
     """The curve_color override (per-strand CyHair colors under RGB
     coloring, -1 rows keep the material's): the hair scene with colors on
     every other segment and its material switched to RGB coloring."""
     scene_j, scene_t = hair_scenes
-    state = _jax_state_after(scene_j, 1)
+    state = jax_states(scene_j, 1)
     s = scene_t["curve_pts"].shape[0]
     col = np.random.default_rng(3).random((s, 3)).astype(np.float32)
     col[1::2] = -1.0
@@ -243,14 +264,14 @@ def test_colored_hair_step_matches_jax(hair_scenes, jax_dense4):
     assert not torch.equal(got.throughput, plain.throughput)
 
 
-def test_hair_step_shades_hair_lanes(hair_scenes, jax_dense4):
+def test_hair_step_shades_hair_lanes(hair_scenes, jax_states, jax_dense4):
     """The first step from the camera hits the tuft on some lanes, and
     those lanes go on (the hair closure sample is taken, not dropped)."""
     from pbrlab_tpu_torch.core.math import INF
     from pbrlab_tpu_torch.ops.intersect import trace_scene
 
     scene_j, scene_t = hair_scenes
-    state = _to_torch(_jax_state_after(scene_j, 0))
+    state = _to_torch(jax_states(scene_j, 0))
     hit = trace_scene(scene_t, state.org, state.direction, state.min_t,
                       torch.full_like(state.min_t, INF))
     assert int(hit["is_curve"].sum()) > 10

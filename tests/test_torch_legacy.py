@@ -39,6 +39,7 @@ from pbrlab_tpu_torch.ops import dense, dense_v2, dense_v3
 from pbrlab_tpu_torch.ops.intersect import _closest, trace_scene_dual
 from pbrlab_tpu_torch.scene.demo import build_demo_scene
 from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 500  # not a multiple of the 128-ray group: exercises the padding
 KERNELS = {  # name: (port wrapper, its plain version, JAX module, kwargs)
@@ -81,17 +82,17 @@ def _tables(scene_np, device="cpu"):
     return scene["dense_tris"], scene["dense_cluster_aabb"]
 
 
-@pytest.fixture()
-def jax_kernels(monkeypatch):
+def _jax_kernels(mp):
     """name -> JAX trace in interpret mode; dense_trace_v3 over 128-ray
-    tiles through its own jitted copy (see the module docstring)."""
+    tiles through its own jitted copy (see the module docstring), while
+    the monkeypatch mp holds RAY_TILE and GROUPS."""
     import jax
     from pbrlab_tpu.ops.pallas import dense as jv1
     from pbrlab_tpu.ops.pallas import dense_v2 as jv2
     from pbrlab_tpu.ops.pallas import dense_v3 as jv3
 
-    monkeypatch.setattr(jv3, "RAY_TILE", 128)
-    monkeypatch.setattr(jv3, "GROUPS", 1)
+    mp.setattr(jv3, "RAY_TILE", 128)
+    mp.setattr(jv3, "GROUPS", 1)
     if not _JAX_V3:
         _JAX_V3.append(jax.jit(jv3.dense_trace_v3.__wrapped__,
                                static_argnames=("any_hit", "interpret",
@@ -99,6 +100,24 @@ def jax_kernels(monkeypatch):
     return {"dense": partial(jv1.dense_trace, interpret=True),
             "dense_v2": partial(jv2.dense_trace_v2, interpret=True),
             "dense_v3": partial(_JAX_V3[0], interpret=True)}
+
+
+@pytest.fixture()
+def jax_kernels(monkeypatch):
+    return _jax_kernels(monkeypatch)
+
+
+def _force_jax_legacy(mp, backend):
+    """Force the JAX package onto a legacy backend, its kernels
+    interpreted (its `_closest_tri` / `_occluded_tri` call dense_trace_v3
+    / v2 without `interpret=`)."""
+    from pbrlab_tpu.ops.pallas import dense_v2 as jv2
+    from pbrlab_tpu.ops.pallas import dense_v3 as jv3
+
+    kernels = _jax_kernels(mp)
+    mp.setenv("PBRLAB_TRACE_BACKEND", backend)
+    mp.setattr(jv3, "dense_trace_v3", kernels["dense_v3"])
+    mp.setattr(jv2, "dense_trace_v2", kernels["dense_v2"])
 
 
 def _numpy_t(tris, prim, rays):
@@ -310,29 +329,43 @@ def step_scenes():
             build_fat_tables(scene_from_numpy(scene_np, "cpu")))
 
 
+@pytest.fixture(scope="module")
+def legacy_states(step_scenes):
+    """JAX's 32x16 camera lanes after two steps on a legacy backend, as
+    `legacy_states(backend)`: computed once per backend in this module
+    (JAX states are immutable; each test hands the port a copy)."""
+    from pbrlab_tpu.render import integrator as jint
+
+    scene_j = step_scenes[0]
+    cache = {}
+
+    def state(backend):
+        if backend not in cache:
+            with pytest.MonkeyPatch.context() as mp:
+                _force_jax_legacy(mp, backend)
+                st = jint.init_state(scene_j, 32, 16, np.uint32(0), 3)
+                for _ in range(2):
+                    st = jint.wavefront_step(scene_j, st, 0)
+            cache[backend] = st
+        return cache[backend]
+    return state
+
+
 @pytest.mark.parametrize("kind", list(STEP_KINDS))
 @pytest.mark.parametrize("backend", ["dense3", "dense"])
-def test_step_matches_jax(step_scenes, jax_kernels, monkeypatch, backend,
+def test_step_matches_jax(step_scenes, legacy_states, monkeypatch, backend,
                           kind):
     """One step of each kind with `tri_backend` forced to a legacy
     backend, against JAX forced by PBRLAB_TRACE_BACKEND to the same one
-    (its `_closest_tri` / `_occluded_tri` call dense_trace_v3 / v2
-    without `interpret=`, so the wrappers are patched to interpret). The
-    state: JAX's 32x16 camera lanes after two steps on that backend. The
-    band of tests/test_torch_integrator.py."""
-    from pbrlab_tpu.ops.pallas import dense_v2 as jv2
-    from pbrlab_tpu.ops.pallas import dense_v3 as jv3
+    (`_force_jax_legacy`). The state: JAX's 32x16 camera lanes after two
+    steps on that backend. The band of tests/test_torch_integrator.py."""
     from pbrlab_tpu.render import integrator as jint
     from pbrlab_tpu_torch.render import integrator as tint
     from test_torch_integrator import _assert_state_close, _to_torch
 
     scene_j, scene_t = step_scenes
-    monkeypatch.setenv("PBRLAB_TRACE_BACKEND", backend)
-    monkeypatch.setattr(jv3, "dense_trace_v3", jax_kernels["dense_v3"])
-    monkeypatch.setattr(jv2, "dense_trace_v2", jax_kernels["dense_v2"])
-    state = jint.init_state(scene_j, 32, 16, np.uint32(0), 3)
-    for _ in range(2):
-        state = jint.wavefront_step(scene_j, state, 0)
+    state = legacy_states(backend)
+    _force_jax_legacy(monkeypatch, backend)
     if kind != "full":
         walking = np.asarray(state.alive & (state.mode == jint.MODE_VOLUME))
         assert walking.sum() > 5

@@ -1,5 +1,5 @@
-"""The per-ray walk of dense_v5i and dense_v5l against an independent
-per-lane walk in numpy.
+"""The per-ray walk of dense_v5i, dense_v5 (and its dual) and dense_v5l
+against an independent per-lane walk in numpy.
 
 `pbrlab_tpu_torch/ops/per_ray.py` is the plain torch twin of the per-ray
 kernels: every lane pops its own stack, all lanes advanced together one
@@ -16,8 +16,11 @@ ray-box tests and transforms equal.
 
 Cases: the textured 9-instance scene of test_torch_instancing.py
 (closest and any-hit), the subdiv=1 scene of test_torch_dense_v5.py
-through the leaf-major table from the root and from per-group roots (ray
-i from roots[i // 1024]), any-hit masks against the closest hit's with
+through the attr-major table from node 0 (dense_v5: closest and any-hit;
+the dual: its closest answer the single walk's, its occlusion the numpy
+any-hit walk's of the shadow rays) and through the leaf-major table from
+the root and from per-group roots (ray i from roots[i // 1024]), any-hit
+masks against the closest hit's with
 dead and padded lanes, and a synthetic two-level scene at the stack bound
 that `build_instanced` checks (TLAS depth + deepest BLAS + 4 < STACK):
 each level a chain whose near child is the next inner node and whose far
@@ -42,6 +45,7 @@ from pbrlab_tpu_torch.scene.instanced import _depth
 from test_torch_dense_v5 import _rays as _v5_rays
 from test_torch_instancing import I5_KEYS, _builder, _port
 from test_torch_instancing import _rays as _inst_rays
+from torch_threads import one_torch_thread  # noqa: F401
 
 F = np.float32
 BIG = F(1e30)
@@ -197,6 +201,54 @@ def _v5l_rays(scene, n, seed):
     """test_torch_dense_v5.py's rays without the shadow query: dead and
     clipped lanes among them."""
     return _v5_rays(scene, n, seed)[:4]
+
+
+def _attr_major_walk(scene):
+    """The numpy walk over the attr-major table; every leaf's 32 slots
+    start at a multiple of 32 (the kernel's float4 loads need it)."""
+    tris, aabb, meta = (np.asarray(scene[k]) for k in (
+        "dense_tris_v4", "v5_node_aabb", "v5_node_meta"))
+    assert (meta[1][meta[0] < 0] % 32 == 0).all() and tris.shape[1] % 32 == 0
+    return (NumpyWalk(lambda b: tris[:, b:b + 32], aabb, meta),
+            [torch.from_numpy(x) for x in (tris, aabb, meta)])
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_v5_twin_matches_numpy_walk(v5l_np, any_hit):
+    """dense_v5's twin: each lane from node 0 over the attr-major table,
+    1500 rays with dead and clipped lanes."""
+    walk, tables = _attr_major_walk(v5l_np[3])
+    n = 1500
+    rays = _v5l_rays(v5l_np[3], n, 16)
+    want = walk.trace(*rays, np.zeros(n, np.int64), any_hit)
+    got = dense_v5._v5_ref(*tables, *(torch.from_numpy(r) for r in rays),
+                           any_hit=any_hit, counts=True)
+    assert got[4] is None  # no shadow query, no occlusion
+    _check([*got[:4], got[5]], want)
+    hit = want["prim"] >= 0
+    assert hit.mean() > 0.2 and not hit[::7].any()  # dead lanes
+
+
+def test_dual_twin_matches_numpy_walk(v5l_np):
+    """The dual's twin: its closest answer is the single walk's to the bit,
+    its occlusion the numpy any-hit walk's of the shadow rays from the same
+    origins (30% of the lanes ask none), and its counts the sum of both
+    walks'."""
+    walk, tables = _attr_major_walk(v5l_np[3])
+    n = 1500
+    rays = _v5_rays(v5l_np[3], n, 17)
+    rt = [torch.from_numpy(r) for r in rays]
+    *dual, occ, work = dense_v5._v5_ref(*tables, *rt[:4], shadow=rt[4:],
+                                        counts=True)
+    *single, _, single_work = dense_v5._v5_ref(*tables, *rt[:4],
+                                               counts=True)
+    for a, b in zip(dual, single):
+        assert torch.equal(a, b)
+    want = walk.trace(rays[0], *rays[4:], np.zeros(n, np.int64), True)
+    np.testing.assert_array_equal(occ.numpy(), want["prim"] >= 0)
+    np.testing.assert_array_equal((work - single_work).numpy(), want["work"])
+    assert 0.05 < occ.float().mean() < 0.95
+    assert not occ.numpy()[rays[6] < rays[5]].any()
 
 
 @pytest.mark.parametrize("rooted", [False, True], ids=["root0", "roots"])

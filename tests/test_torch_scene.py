@@ -15,6 +15,7 @@ from pbrlab_tpu.scene.scene import scene_to_device
 from pbrlab_tpu_torch.ops.build import build_v5, pack_triangles_sah
 from pbrlab_tpu_torch.scene import demo as tdemo
 from pbrlab_tpu_torch.scene.scene import build_fat_tables, scene_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 SLICE_KEYS = ("tri_v0", "tri_e1", "tri_e2", "face_ng", "face_area",
               "face_ns", "face_has_ns", "face_uv", "face_has_uv",

@@ -24,6 +24,7 @@ from pbrlab_tpu.shading import sss as jsss
 from pbrlab_tpu_torch.shading import ggx as tggx
 from pbrlab_tpu_torch.shading import principled as tpr
 from pbrlab_tpu_torch.shading import sss as tsss
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 4096
 RTOL = 1e-5

@@ -18,6 +18,7 @@ import torch
 
 from pbrlab_tpu_torch.io import image
 from pbrlab_tpu_torch.scene import textures
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZES = [(8, 12), (5, 7), (16, 3)]  # (h, w) of the three textures
 
