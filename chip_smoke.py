@@ -30,9 +30,10 @@ all at max_steps=12, k_volume=3. Phase 3 checks each kernel against its
 plain torch version at its path's shapes and times both (dense_curve also
 on a dense tuft of 8192 strands, 3584 clusters; the legacy v1 kernel,
 which no render path reaches, at the file path's shapes; the per-ray
-dense_v5, dense_v5 dual, dense_v5l and dense_v5i kernels bit-equal to
-their twins, whose counts of each lane's tests print beside the need, and
-the dual's closest answer bit-equal to dense_v5's); phase 4 checks small
+dense_v4, dense_v4 dual, dense_v5, dense_v5 dual, dense_v5l and dense_v5i
+kernels bit-equal to their twins, whose counts of each lane's tests print
+beside the need, and each dual's closest answer bit-equal to its single
+kernel's; dense_v4 also timed as a whole wrapper call); phase 4 checks small
 renders on the card against the same renders on the CPU (the instanced
 one on a 16-instance cut of its scene, PARITY_INSTANCED; the file scene
 through both legacy backends); phase 5 renders each path with
@@ -349,76 +350,113 @@ def path_rays(scene, dev, rng, frame=CORNELL_FRAME):
 
 
 def v4_phase(dense_v4, scene, dual, single, card):
-    """dense_v4 kernels vs the plain walk on the cornellbox; times and the
-    bound of the tests the per-thread exit needs."""
-    tris = scene["dense_tris_v4"]
-    aabb = scene["dense_cluster_aabb_v4"]
-    dual_args = (tris, aabb, *dual)
-    single_args = (tris, aabb, *single)
-    got, occ = dense_v4.dense_trace_v4_dual(*dual_args)
-    ref, ref_occ = dense_v4.dense_trace_v4_dual_ref(*dual_args)
+    """The per-ray dense_v4 kernels vs their twin on the cornellbox: the
+    dual at N_DUAL, closest at N_SINGLE and N_DUAL, any-hit on the
+    N_SINGLE rays and on the shadow rays, every output bit-equal, and the
+    dual's closest answer the single kernel's."""
+    tables = (scene["dense_tris_v4"], scene["dense_cluster_aabb_v4"])
+    rec = {"dual": v4_case(dense_v4, "dense_v4 dual", tables, dual, card),
+           "single": v4_case(dense_v4, "dense_v4 closest", tables, single,
+                             card)}
+    v4_case(dense_v4, "dense_v4 closest", tables, dual[:4], card,
+            plain_reps=1)
+    v4_case(dense_v4, "dense_v4 any-hit", tables, single, card,
+            any_hit=True, plain_reps=1)
+    v4_case(dense_v4, "dense_v4 any-hit (shadow rays)", tables,
+            (dual[0], *dual[4:]), card, any_hit=True, plain_reps=1)
+    both = dense_v4._v4_cuda(*tables, *dual[:4], shadow=dual[4:])
+    alone = dense_v4._v4_cuda(*tables, *dual[:4])
     torch.cuda.synchronize()
-    err = {"dual": check_hits("v4 dual", got, ref, occ, ref_occ)}
-    got = dense_v4.dense_trace_v4(*single_args)
-    ref = dense_v4.dense_trace_v4_ref(*single_args)
-    torch.cuda.synchronize()
-    err["single"] = check_hits("v4 single", got, ref)
-    anyh = dense_v4.dense_trace_v4(*single_args, any_hit=True)
-    if not torch.equal(anyh["prim"] >= 0, ref["prim"] >= 0):
-        raise AssertionError("v4 single any-hit: hit mask differs")
-    print(f"parity dense_v4: dual N={N_DUAL} max|dt|={err['dual']:.3g} "
-          f"hits={int((ref['prim'] >= 0).sum())}; single N={N_SINGLE} "
-          f"max|dt|={err['single']:.3g}; any-hit mask equal")
-    rec = {}
-    for name, args in (("dual", dual_args), ("single", single_args)):
-        walk, plain_walk, need = walk_timers(dense_v4, *args,
-                                             dual=(name == "dual"))
-        ms, plain = cuda_ms(walk), cuda_ms(plain_walk, reps=3)
-        n = args[2].shape[0]  # outputs: t, u, v, prim (+ occluded)
-        out_bytes = 16 * n + (n if name == "dual" else 0)
-        b_ms, b_by = bound(nbytes(*args) + out_bytes, OPS_TRI * need)
-        rec[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err=err[name])
-        print(f"time dense_v4 {name}: kernel {ms:.4f} ms, plain walk "
-              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {need} "
-              f"ray-triangle tests needed) ({card})")
+    for key, x, y in zip("tuvp", both, alone):
+        if not torch.equal(x, y):
+            raise AssertionError(f"dense_v4 dual: closest {key} differs from "
+                                 f"dense_v4_trace's on "
+                                 f"{int((x != y).sum())} lanes")
+    print(f"dense_v4 dual: closest t, u, v, prim bit-equal to "
+          f"dense_v4_trace's on its {N_DUAL} rays")
     return rec
 
 
-def walk_timers(dense_v4, tris, aabb, org, direction, min_t, max_t,
-                sdir=None, smin_t=None, smax_t=None, dual=False):
-    """(kernel, plain walk, tests needed) over one prepared survivor list
-    (the rays are whole groups, so no padding is needed). A lane needs the
-    32 tests of every cluster whose box it enters before its final best t
-    (shadow: before its max t, unless occluded: then 1 cluster)."""
-    gm, tn = dense_v4.exact_group_survivors(aabb, org, direction, min_t,
-                                            max_t)
-    extra = ()
-    if dual:
-        gm_s, tn_s = dense_v4.exact_group_survivors(aabb, org, sdir, smin_t,
-                                                    smax_t)
-        gm, tn = gm | gm_s, torch.minimum(tn, tn_s)
-        extra = (sdir, smin_t, smax_t)
-    surv, cnt, tnear = dense_v4._survivor_lists(gm, tn)
-    args = (tris, surv, cnt, tnear, org, direction, min_t, max_t, *extra)
-    best_t, _, _, _, occ = dense_v4._walk_ref(tris, surv, cnt, org,
-                                              direction, min_t, max_t, *extra)
-    # each lane's own slab test (a group of one), capped at its answer
-    need = int(dense_v4.exact_group_survivors(aabb, org, direction, min_t,
-                                              best_t, group=1)[0].sum())
-    if dual:
-        s_live = smax_t >= smin_t
-        s_need = dense_v4.exact_group_survivors(aabb, org, sdir, smin_t,
-                                                smax_t, group=1)[0]
-        need += int(s_need[~occ].sum()) + int((s_live & occ).sum())
+def v4_need(aabb, rays, best_t, occ, any_hit=False):
+    """Ray-triangle tests these inputs need when each lane walks the
+    clusters alone knowing its answer: the 32 of every cluster whose box
+    it enters before its final best t (a shadow or any-hit lane: before
+    its max t, or one cluster where it is occluded). rays as `v5_need`'s:
+    a closest query, an any-hit query whose answer is occ, or a closest
+    query and a shadow query from the same origins. The slab test is the
+    TPU prelude's (`dense_v4.slab_interval`), each lane a group of one."""
+    from pbrlab_tpu_torch.ops.dense_v4 import slab_interval
+
+    org = rays[0]
+
+    def entered(direction, min_t, cap):
+        tnear, tfar = slab_interval(aabb, org, direction, min_t)
+        enters = tnear <= torch.minimum(tfar, cap[:, None]) * 1.00000024
+        return (enters & (cap >= min_t)[:, None]).sum(dim=1)
+
+    def shadow(direction, min_t, max_t):
+        return int(torch.where(occ, (max_t >= min_t).long(),
+                               entered(direction, min_t, max_t)).sum())
+
+    if any_hit:
+        return 32 * shadow(*rays[1:4])
+    need = int(entered(rays[1], rays[2], best_t).sum())
+    if len(rays) > 4:
+        need += shadow(*rays[4:])
+    return 32 * need
+
+
+def v4_case(dense_v4, name, tables, rays, card, any_hit=False,
+            plain_reps=3):
+    """One dense_v4 kernel vs its twin on the same inputs: closest (or
+    any_hit) on 4 ray arrays, the dual on 7 (with the shadow query); every
+    output equal to the bit, with the twin's own counts of each lane's
+    tests beside the need (`v4_need`). CUDA-event times of the kernel, the
+    twin and the whole wrapper call (`dense_trace_v4` / `_dual`)."""
+    kw = {"any_hit": any_hit,
+          "shadow": rays[4:] if len(rays) > 4 else None}
+    args = (*tables, *rays[:4])
 
     def kernel():
-        dense_v4._walk_cuda(*args)
+        return dense_v4._v4_cuda(*args, **kw)
 
-    def plain():
-        dense_v4._walk_ref(tris, surv, cnt, org, direction, min_t, max_t,
-                           *extra)
-    return kernel, plain, 32 * need
+    def plain_walk():
+        return dense_v4._v4_ref(*args, **kw)
+
+    def wrapper():
+        if kw["shadow"] is None:
+            return dense_v4.dense_trace_v4(*args, any_hit=any_hit)
+        return dense_v4.dense_trace_v4_dual(*tables, *rays)
+
+    got = kernel()
+    *ref, work = dense_v4._v4_ref(*args, counts=True, **kw)
+    torch.cuda.synchronize()
+    for key, x, y in zip(("t", "u", "v", "prim", "occluded"), got, ref):
+        if x is not None and not torch.equal(x, y):
+            raise AssertionError(f"{name}: {key} differs from the twin on "
+                                 f"{int((x != y).sum())} lanes")
+    hit = ref[3] >= 0
+    err = float((got[0][hit] - ref[0][hit]).abs().max()) if hit.any() \
+        else 0.0
+    occ = ref[4]
+    need = v4_need(tables[1], rays, ref[0], hit if any_hit else occ,
+                   any_hit=any_hit)
+    ms = cuda_ms(kernel)
+    plain = cuda_ms(plain_walk, reps=plain_reps, warmup=1)
+    whole = cuda_ms(wrapper)
+    n = rays[0].shape[0]  # outputs: t, u, v, prim (+ occluded)
+    out_bytes = 16 * n + (0 if occ is None else n)
+    b_ms, b_by = bound(nbytes(*tables, *rays) + out_bytes, OPS_TRI * need)
+    walked = int(work[:, 0].sum())
+    occluded = "" if occ is None else f" occluded={int(occ.sum())}"
+    print(f"{name}: N={n} hits={int(hit.sum())}{occluded} bit-equal to the "
+          f"twin; kernel {ms:.4f} ms, twin {plain:.4f} ms, whole wrapper "
+          f"call {whole:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {need} "
+          f"ray-triangle tests needed; the walk did {walked}, "
+          f"{walked / max(need, 1):.3f}x, and {int(work[:, 1].sum())} "
+          f"ray-box tests) ({card})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, whole_ms=whole)
 
 
 def bvh_levels(node_meta):

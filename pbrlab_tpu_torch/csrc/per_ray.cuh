@@ -1,6 +1,7 @@
-// Per-ray BVH walk for Hopper (sm_90a), shared by the dense_v5, dense_v5
+// Per-ray walks for Hopper (sm_90a): the BVH walk of the dense_v5, dense_v5
 // dual and dense_v5l kernels (csrc/dense_v5.cu) and the dense_v5i kernel
-// (csrc/dense_v5i.cu).
+// (csrc/dense_v5i.cu), and the cluster walk of the dense_v4 kernels
+// (csrc/dense_v4.cu; `cluster_walk` at the end of this file).
 //
 // One thread walks one ray alone, with its own stack of (node, entry t)
 // pairs: no block reduction, no vote and no barrier anywhere in the walk.
@@ -231,6 +232,41 @@ __device__ __forceinline__ void walk(const Tables& tb, const Frame& world,
       continue;
     }
     leaf<kLeafMajor>(tb, base, cur, mint, base + fid, h);
+    if (kAnyHit && h.prim >= 0) break;
+  }
+}
+
+// The cluster walk of one ray (dense_v4; no tree): tb.naabb holds the
+// boxes of tb.nodes clusters, cluster c's 32 triangles are the leaf at
+// slot base 32 c. The thread slab-tests its ray against every box in
+// cluster order, capped at its max t (every lane reads the same box at the
+// same step: a broadcast), keeps the clusters it enters in lst as
+// (cluster, entry t bits) ordered by entry t (inserted behind equal ones:
+// ties keep the lower cluster id), then walks the list front to back with
+// the pad of walk, stopping once `tn (1 - 1e-6) - 1e-6 > best t`, and with
+// kAnyHit after the first cluster that gives it a hit. h as in walk; lst
+// has room for every cluster (kMax >= tb.nodes, which the caller checks).
+template <bool kAnyHit, int kMax>
+__device__ __forceinline__ void cluster_walk(const Tables& tb, const Frame& f,
+                                             float mint, Hit& h,
+                                             int2 (&lst)[kMax]) {
+  if (!(h.t >= mint)) return;  // a dead lane tests nothing
+  int cnt = 0;
+#pragma unroll 1
+  for (int c = 0; c < tb.nodes; ++c) {
+    const float tn = slab(tb, c, f, mint, h.t);
+    if (!(tn < kBig)) continue;
+    int j = cnt++;
+    for (; j > 0 && __int_as_float(lst[j - 1].y) > tn; --j) {
+      lst[j] = lst[j - 1];
+    }
+    lst[j] = make_int2(c, __float_as_int(tn));
+  }
+#pragma unroll 1
+  for (int j = 0; j < cnt; ++j) {
+    if (!(__int_as_float(lst[j].y) * 0.999999f - 1e-6f <= h.t)) break;
+    const int base = lst[j].x * kCluster;
+    leaf<false>(tb, base, f, mint, base, h);
     if (kAnyHit && h.prim >= 0) break;
   }
 }

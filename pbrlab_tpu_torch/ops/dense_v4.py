@@ -1,4 +1,4 @@
-"""dense_v4 triangle trace: survivor-list walk over 32-triangle clusters.
+"""dense_v4 triangle trace: per-ray walk over 32-triangle clusters.
 
 Port of pbrlab_tpu/ops/pallas/dense_v4.py. Two kernels, written by hand in
 CUDA for Hopper (`csrc/dense_v4.cu`), replace the two Pallas kernels:
@@ -7,18 +7,26 @@ CUDA for Hopper (`csrc/dense_v4.cu`), replace the two Pallas kernels:
   hit (or any-hit) of one ray per lane;
 * `dense_trace_v4_dual` -> `dense_v4_trace_dual` replaces
   `_trace_kernel_dual`: the closest hit plus the deferred-NEE shadow
-  any-hit from the same origin, in one walk.
+  any-hit from the same origin, in one launch.
 
-The prelude stays plain torch, as it stayed XLA in the JAX package: an
-exact per-ray slab test against every cluster AABB, reduced to per-group
-(1024 rays) survivor masks and tnear lower bounds, then a stable argsort
-into front-to-back survivor lists.
+Both walk per ray (`csrc/per_ray.cuh` `cluster_walk`, one thread per
+ray): each lane slab-tests its ray against every cluster box, orders the
+clusters it enters by entry t and tests them front to back until its own
+best t lies before the next entry; any-hit ends a lane's walk after the
+first cluster that gives it a hit. The dual walks a lane's closest ray,
+then its shadow ray as an any-hit query from the same origin, so its
+closest answer is `dense_trace_v4`'s to the bit. They replace the TPU's
+group walk, in which an XLA prelude (`exact_group_survivors` + argsort)
+reduced every ray's slab tests to one survivor list per 1024-ray group
+and each ray walked its group's list. `_v4_ref` is the plain torch twin
+(`per_ray.cluster_walk_ref`, each lane's own list). Against the JAX
+package the two may differ on exact-t ties and on rays that graze a
+cluster box (ROADMAP C3).
 
-Each wrapper takes the kernel for CUDA tensors and the plain torch walk
-(`_walk_ref`) for CPU tensors; `dense_trace_v4_ref` and
-`dense_trace_v4_dual_ref` run the plain walk on any device, which is what
-the kernels are compared with on the card. `LAUNCHES` counts kernel
-launches per entry point.
+Each wrapper takes the kernel for CUDA tensors and the twin for CPU
+tensors; `dense_trace_v4_ref` and `dense_trace_v4_dual_ref` run the twin
+on any device, which is what the kernels are compared with on the card.
+`LAUNCHES` counts kernel launches per entry point.
 
 Contract (as the JAX package): rays (org, direction, min_t, max_t) are
 float32, max_t < min_t marks a dead lane; results are t, u, v (float32)
@@ -32,18 +40,21 @@ import ctypes
 import torch
 
 from ..core.math import INF
-from . import cuda_lib
+from . import cuda_lib, per_ray
 
-GROUP = 1024  # rays per group: one survivor list per group
 CLUSTER = 32  # triangles per cluster (SAH leaf window)
-_BIG = 1e30
+MAX_CLUSTERS = 256  # the kernels' per-lane list (csrc/dense_v4.cu)
 
 LAUNCHES = {"single": 0, "dual": 0}
 
 
 def slab_interval(aabb, org, direction, min_t):
     """Ray-box slab test of N rays against M boxes (rows 0:3 lo, 3:6 hi of
-    `aabb`) -> (tnear [N, M] clipped below by min_t, tfar [N, M])."""
+    `aabb`) -> (tnear [N, M] clipped below by min_t, tfar [N, M]), in the
+    arithmetic of the TPU kernels' prelude (`exact_group_survivors` of
+    pbrlab_tpu/ops/pallas/dense_v4.py). The integrator's compaction
+    signature uses it, and chip_smoke.py's count of the clusters a lane
+    needs."""
     inv = 1.0 / torch.where(torch.abs(direction) < 1e-12,
                             torch.where(direction < 0.0, -1e-12, 1e-12),
                             direction)
@@ -61,197 +72,93 @@ def slab_interval(aabb, org, direction, min_t):
     return tnear, torch.minimum(torch.minimum(f0, f1), f2)
 
 
-def exact_group_survivors(cluster_aabb, org, direction, min_t, max_t,
-                          group=GROUP):
-    """Exact per-ray slab test -> per-group survivor mask + tnear bound.
-
-    Returns (gm [G, M] bool, tnear_lo [G, M] f32): gm[g, c] iff any ray of
-    group g can hit cluster c within its [min_t, max_t]; tnear_lo is the
-    min over those rays of the slab tnear, the front-to-back sort key.
-    """
-    n = org.shape[0]
-    tnear, tfar = slab_interval(cluster_aabb, org, direction, min_t)
-    tfar = torch.minimum(tfar, max_t[:, None])
-    mask = (tnear <= tfar * 1.00000024) & (max_t >= min_t)[:, None]
-    m = cluster_aabb.shape[1]
-    gm = mask.reshape(n // group, group, m).any(dim=1)
-    tnear_lo = torch.where(mask, tnear, _BIG).reshape(
-        n // group, group, m).amin(dim=1)
-    return gm, tnear_lo
-
-
-def _survivor_lists(gm, tnear_lo):
-    """-> (surv [G, M] int32 front-to-back cluster ids, cnt [G] int32,
-    tnear [G, M] f32 sorted bounds); entries past cnt[g] are not walked."""
-    key = torch.where(gm, tnear_lo, _BIG)
-    surv = torch.argsort(key, dim=1, stable=True)
-    return (surv.to(torch.int32).contiguous(),
-            gm.sum(dim=1).to(torch.int32),
-            torch.gather(key, 1, surv).contiguous())
-
-
-def _pad(x, n_pad, value):
-    """Pad the lane axis to n_pad with `value` (as the JAX wrapper pads:
-    org 0, directions 1, min_t 0, max_t -1 = dead)."""
-    pad = n_pad - x.shape[0]
-    if pad:
-        x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), value)])
-    return x.contiguous()
-
-
-def _walk_ref(tris, surv, cnt, org, direction, min_t, max_t,
-              sdir=None, smin_t=None, smax_t=None):
-    """Plain torch version of both kernels, vectorized over [G, 1024, 32]
-    blocks: walks every group's survivors in list order with no early exit
-    (which changes no result, see csrc/dense_v4.cu), keeping per lane the
-    first-visited triangle of least t. With sdir it also answers the
-    shadow any-hit query. Returns (t, u, v, prim, occluded or None), padded
-    to the input lane count, t = max_t where nothing was hit."""
-    g = surv.shape[0]
-
-    def lanes(x):  # [N] or [N, 3] -> per-component [G, 1024, 1]
-        x = x.reshape(g, GROUP, -1, 1)
-        return [x[:, :, j] for j in range(x.shape[2])]
-
-    ox, oy, oz = lanes(org)
-    dx, dy, dz = lanes(direction)
-    (mint,) = lanes(min_t)
-    best_t = max_t.reshape(g, GROUP).clone()
-    best_u = torch.zeros_like(best_t)
-    best_v = torch.zeros_like(best_t)
-    best_p = torch.full_like(best_t, -1, dtype=torch.int32)
+def _v4_ref(tris, cluster_aabb, org, direction, min_t, max_t,
+            any_hit=False, shadow=None, counts=False):
+    """Plain torch twin of both kernels: every lane's own cluster walk
+    (`per_ray.cluster_walk_ref`), and with shadow = (sdir, smin_t, smax_t)
+    then its shadow ray's any-hit walk. Returns (t, u, v, prim, occluded
+    or None) and, with counts, each lane's ray-triangle and ray-box tests
+    [N, 3] over both walks; t = max_t where nothing was hit."""
+    out = per_ray.cluster_walk_ref(tris, cluster_aabb, org, direction, min_t,
+                                   max_t, any_hit=any_hit, counts=counts)
     occ = None
-    if sdir is not None:
-        sx, sy, sz = lanes(sdir)
-        (smint,) = lanes(smin_t)
-        (smaxt,) = lanes(smax_t)
-        occ = torch.zeros_like(best_t, dtype=torch.bool)
-    ks = torch.arange(CLUSTER, device=tris.device)
-    for si in range(int(cnt.max()) if g else 0):
-        live = (si < cnt)[:, None, None]
-        slot = surv[:, si].to(torch.int64)[:, None] * CLUSTER + ks  # [G, 32]
-        (nx, ny, nz, k0, b1x, b1y, b1z, c1,
-         b2x, b2y, b2z, c2) = tris[:, slot][:, :, None, :].unbind(0)
-        num = k0 - (ox * nx + oy * ny + oz * nz)  # [G, 1024, 32]
-        ob1 = ox * b1x + oy * b1y + oz * b1z - c1
-        ob2 = ox * b2x + oy * b2y + oz * b2z - c2
-        t = num / (dx * nx + dy * ny + dz * nz)
-        u = ob1 + t * (dx * b1x + dy * b1y + dz * b1z)
-        v = ob2 + t * (dx * b2x + dy * b2y + dz * b2z)
-        ok = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= mint) & live
-        # first k of least t, then the strict t < best_t of the kernels
-        tk, k = torch.where(ok, t, float("inf")).min(dim=2)
-        better = tk < best_t
-        best_u = torch.where(better, torch.gather(u, 2, k[..., None])[..., 0],
-                             best_u)
-        best_v = torch.where(better, torch.gather(v, 2, k[..., None])[..., 0],
-                             best_v)
-        best_p = torch.where(better, torch.gather(slot, 1, k).to(torch.int32),
-                             best_p)
-        best_t = torch.where(better, tk, best_t)
-        if occ is not None:
-            ts = num / (sx * nx + sy * ny + sz * nz)
-            us = ob1 + ts * (sx * b1x + sy * b1y + sz * b1z)
-            vs = ob2 + ts * (sx * b2x + sy * b2y + sz * b2z)
-            oks = ((us >= 0.0) & (vs >= 0.0) & (us + vs <= 1.0)
-                   & (ts >= smint) & (ts < smaxt) & live)
-            occ = occ | oks.any(dim=2)
-    flat = [x.reshape(-1) for x in (best_t, best_u, best_v, best_p)]
-    return (*flat, None if occ is None else occ.reshape(-1))
+    if shadow is not None:
+        s_out = per_ray.cluster_walk_ref(tris, cluster_aabb, org, *shadow,
+                                         any_hit=True, counts=counts)
+        occ = s_out[3] >= 0
+    if not counts:
+        return (*out, occ)
+    work = out[4] if shadow is None else out[4] + s_out[4]
+    return (*out[:4], occ, work)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_TRACE_ARGS = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-               _P, _P, _P, _P, _P]
-_DUAL_ARGS = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-              _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
+# tris, slots, cluster_aabb, clusters, org, dir, min_t, max_t
+_HEAD = [_P, _I, _P, _I, _P, _P, _P, _P]
+_TRACE_ARGS = _HEAD + [_I, _I, _P, _P, _P, _P, _P]  # any_hit, n, outs, stream
+_DUAL_ARGS = _HEAD + [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
 
 
-def _check(x, dtype, shape, device):
-    cuda_lib.check_tensor("dense_v4", x, dtype, shape, device)
-
-
-def _walk_cuda(tris, surv, cnt, tnear, org, direction, min_t, max_t,
-               sdir=None, smin_t=None, smax_t=None, any_hit=False):
-    """Launch one dense_v4 kernel on the current stream; same returns as
-    `_walk_ref` (any_hit stops each lane at its first hit)."""
+def _v4_cuda(tris, cluster_aabb, org, direction, min_t, max_t,
+             any_hit=False, shadow=None):
+    """Launch the dense_v4 kernel, or with shadow the dual one, on the
+    current stream; same returns as `_v4_ref`."""
     dev = org.device
     n = org.shape[0]
-    g, m = surv.shape
+    rows, m = cluster_aabb.shape
     f32, i32 = torch.float32, torch.int32
-    _check(tris, f32, (12, tris.shape[1]), dev)
-    _check(surv, i32, (g, m), dev)
-    _check(cnt, i32, (g,), dev)
-    _check(tnear, f32, (g, m), dev)
-    rays = [(org, (n, 3)), (direction, (n, 3)), (min_t, (n,)), (max_t, (n,))]
-    if sdir is not None:
-        rays += [(sdir, (n, 3)), (smin_t, (n,)), (smax_t, (n,))]
-    for x, shape in rays:
-        _check(x, f32, shape, dev)
-    if n != g * GROUP:
-        raise ValueError(f"{n} lanes is not {g} groups of {GROUP}")
+    if rows < 6 or not 0 < m <= MAX_CLUSTERS:
+        raise ValueError(f"dense_v4 kernel wants [>= 6, M] cluster boxes "
+                         f"with 0 < M <= {MAX_CLUSTERS}; got {rows} x {m}")
+    checks = [(tris, f32, (12, CLUSTER * m)), (cluster_aabb, f32, (rows, m)),
+              (org, f32, (n, 3)), (direction, f32, (n, 3)),
+              (min_t, f32, (n,)), (max_t, f32, (n,))]
+    if shadow is not None:
+        checks += zip(shadow, (f32,) * 3, ((n, 3), (n,), (n,)))
+    for x, dtype, shape in checks:
+        cuda_lib.check_tensor("dense_v4", x, dtype, shape, dev)
+    # cluster c's rows start at slot 32 c
+    cuda_lib.check_float4_rows("dense_v4", tris, tris.shape[1])
     t = torch.empty((n,), dtype=f32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     prim = torch.empty((n,), dtype=i32, device=dev)
+    outs = [t.data_ptr(), u.data_ptr(), v.data_ptr(), prim.data_ptr()]
+    head = [tris.data_ptr(), tris.shape[1], cluster_aabb.data_ptr(), m,
+            org.data_ptr(), direction.data_ptr(), min_t.data_ptr(),
+            max_t.data_ptr()]
+    occ = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        head = [tris.data_ptr(), tris.shape[1], surv.data_ptr(),
-                cnt.data_ptr(), tnear.data_ptr(), m, org.data_ptr(),
-                direction.data_ptr(), min_t.data_ptr(), max_t.data_ptr()]
-        outs = [t.data_ptr(), u.data_ptr(), v.data_ptr(), prim.data_ptr()]
-        if sdir is None:
-            occ = None
+        if shadow is None:
             kind = "single"
             rc = cuda_lib.function("dense_v4_trace", _TRACE_ARGS)(
                 *head, int(any_hit), n, *outs, stream)
         else:
-            occ = torch.empty((n,), dtype=torch.uint8, device=dev)
             kind = "dual"
+            occ = torch.empty((n,), dtype=torch.uint8, device=dev)
             rc = cuda_lib.function("dense_v4_trace_dual", _DUAL_ARGS)(
-                *head, sdir.data_ptr(), smin_t.data_ptr(), smax_t.data_ptr(),
-                n, *outs, occ.data_ptr(), stream)
-            occ = occ.bool()
+                *head, *(x.data_ptr() for x in shadow), n, *outs,
+                occ.data_ptr(), stream)
     cuda_lib.launched(f"dense_v4 {kind}", rc)
     LAUNCHES[kind] += 1
-    return t, u, v, prim, occ
+    return t, u, v, prim, None if occ is None else occ.bool()
 
 
 def _trace(packed_tris, cluster_aabb, org, direction, min_t, max_t,
            shadow=None, any_hit=False, plain=False):
-    """Pad, cull, sort, walk (kernel on CUDA tensors unless plain), unpad."""
-    n = org.shape[0]
-    n_pad = (n + GROUP - 1) // GROUP * GROUP
-    org = _pad(org, n_pad, 0.0)
-    direction = _pad(direction, n_pad, 1.0)
-    min_t = _pad(min_t, n_pad, 0.0)
-    max_t = torch.clamp(_pad(max_t, n_pad, -1.0), max=INF)
-    gm, tnear_lo = exact_group_survivors(cluster_aabb, org, direction,
-                                         min_t, max_t)
-    sargs = ()
+    """Walk (the kernel on CUDA tensors unless plain); t = INF on a miss."""
+    tables = [x.contiguous() for x in (packed_tris, cluster_aabb)]
+    rays = [org.contiguous(), direction.contiguous(), min_t.contiguous(),
+            torch.clamp(max_t, max=INF)]
     if shadow is not None:
         sdir, smin_t, smax_t = shadow
-        sdir = _pad(sdir, n_pad, 1.0)
-        smin_t = _pad(smin_t, n_pad, 0.0)
-        smax_t = torch.clamp(_pad(smax_t, n_pad, -1.0), max=INF)
-        gm_s, tn_s = exact_group_survivors(cluster_aabb, org, sdir,
-                                           smin_t, smax_t)
-        gm = gm | gm_s
-        tnear_lo = torch.minimum(tnear_lo, tn_s)
-        sargs = (sdir, smin_t, smax_t)
-    surv, cnt, tnear = _survivor_lists(gm, tnear_lo)
-    tris = packed_tris.contiguous()
-    if org.is_cuda and not plain:
-        t, u, v, prim, occ = _walk_cuda(tris, surv, cnt, tnear, org,
-                                        direction, min_t, max_t, *sargs,
-                                        any_hit=any_hit)
-    else:
-        t, u, v, prim, occ = _walk_ref(tris, surv, cnt, org, direction,
-                                       min_t, max_t, *sargs)
-    hit = prim[:n] >= 0
-    res = {"t": torch.where(hit, t[:n], INF), "u": u[:n], "v": v[:n],
-           "prim": prim[:n]}
-    return res if occ is None else (res, occ[:n])
+        shadow = (sdir.contiguous(), smin_t.contiguous(),
+                  torch.clamp(smax_t, max=INF))
+    walk = _v4_cuda if org.is_cuda and not plain else _v4_ref
+    t, u, v, prim, occ = walk(*tables, *rays, any_hit=any_hit, shadow=shadow)
+    res = {"t": torch.where(prim >= 0, t, INF), "u": u, "v": v, "prim": prim}
+    return res if occ is None else (res, occ)
 
 
 def dense_trace_v4(packed_tris, cluster_aabb, org, direction, min_t, max_t,

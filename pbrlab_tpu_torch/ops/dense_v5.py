@@ -48,7 +48,6 @@ import torch
 
 from ..core.math import INF
 from . import cuda_lib, per_ray
-from .dense_v4 import _pad
 from .per_ray import _inv
 
 GROUP = 1024  # rays per v5l group root: the v5l walks take whole groups
@@ -64,6 +63,15 @@ _HEAD = [_P, _I, _P, _P, _I, _P, _P, _P, _P]
 _V5_ARGS = _HEAD + [_I, _I, _P, _P, _P, _P, _P]  # any_hit, n, outs, stream
 _DUAL_ARGS = _HEAD + [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
 _V5L_ARGS = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P]
+
+
+def _pad(x, n_pad, value):
+    """Pad the lane axis to n_pad with `value` (as the JAX wrappers pad:
+    org 0, directions 1, min_t 0, max_t -1 = dead)."""
+    pad = n_pad - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), value)])
+    return x.contiguous()
 
 
 def _v5_ref(tris, node_aabb, node_meta, org, direction, min_t, max_t,

@@ -52,7 +52,7 @@ import torch
 from ..core.math import INF
 from ..geometry.bvh import build_bvh
 from . import cuda_lib, per_ray
-from .dense_v4 import _pad
+from .dense_v5 import _pad
 
 GROUP = 1024  # the wrappers pad the rays to whole groups of GROUP
 STACK = 160  # stack entries per lane for both levels (the build checks)

@@ -30,12 +30,12 @@ import torch
 from .dense_curve import dense_curve_trace
 from .dense_v2 import dense_trace_v2
 from .dense_v3 import dense_trace_v3
+from .dense_v4 import MAX_CLUSTERS as MAX_DENSE4_CLUSTERS
 from .dense_v4 import dense_trace_v4, dense_trace_v4_dual
 from .dense_v5 import (dense_trace_v5, dense_trace_v5_dual, dense_trace_v5l,
                        dense_trace_v5s)
 from .dense_v5i import dense_trace_v5i
 
-MAX_DENSE4_CLUSTERS = 256
 # the legacy brute-force backends, whose prim ids are in Morton order
 LEGACY = {"dense3": dense_trace_v3, "dense": dense_trace_v2,
           "dense2": dense_trace_v2}
@@ -69,10 +69,10 @@ def _tables(scene, backend, *keys):
 def sparse_backend(scene, tri_backend: str | None = None) -> str | None:
     """Backend for traces where most lanes are dead (unwindowed volume
     substeps: only walking lanes trace), derived from the scene's choice or
-    the forced `tri_backend`. In the per-ray dense_v5 and dense_v5l walks
-    a dead lane pushes nothing and its thread ends at once, where
-    dense_v4's cull and dense_v5s's sorts run over every lane. None: the
-    choice is already right (the legacy backends keep theirs)."""
+    the forced `tri_backend`, as the JAX package chooses it (dense4 scenes
+    take dense5). In the per-ray walks a dead lane's thread ends at once,
+    where dense_v5s's sorts run over every lane. None: the choice is
+    already right (the legacy backends keep theirs)."""
     return {"dense4": "dense5", "dense5s": "dense5l"}.get(
         tri_backend or _tri_backend(scene))
 

@@ -1,5 +1,7 @@
-"""Plain torch twin of the per-ray BVH walk (`csrc/per_ray.cuh`), which
-the dense_v5l and dense_v5i kernels run.
+"""Plain torch twins of the per-ray walks of `csrc/per_ray.cuh`: the BVH
+walk, which the dense_v5, dense_v5l and dense_v5i kernels run
+(`walk_ref`), and the cluster walk of the dense_v4 kernels
+(`cluster_walk_ref`).
 
 Every lane walks alone: it has its own stack of (node, entry t) entries
 (`[N, stack]` ids and entry t) and its own pointer. Each step pops one
@@ -23,9 +25,14 @@ lane as the kernel's thread handles it:
   strict `<` keeps. Any-hit ends the lane's walk after the first leaf that
   gives it a hit.
 
+The cluster walk has no tree: each lane slab-tests its ray against every
+cluster box, sorts the clusters it enters by entry t (stable: ties by the
+lower cluster id) and walks them front to back with the same cull and
+leaf test; step j tests the j-th cluster of every lane still walking.
+
 The float operations are the kernel's, in its order, so on the card the
-kernel and this twin agree to the bit. `walk_ref` optionally counts, per
-lane, the ray-triangle tests, ray-box tests and instance transforms it
+kernel and this twin agree to the bit. Both twins optionally count, per
+lane, the ray-triangle tests, ray-box tests and instance transforms they
 did.
 """
 from __future__ import annotations
@@ -52,11 +59,17 @@ def _frame(o, d):
 def _slab(node_aabb, node, f, mint, cap):
     """Entry t of each lane's ray (frame rows f) into box node [n] if it
     enters before cap, else 1e30."""
-    box = node_aabb[:, node]
+    return _enter(node_aabb[:, node], f.T, mint, cap)
+
+
+def _enter(box, fr, mint, cap):
+    """The slab test of `per_ray::slab`: entry t of rays (frame columns
+    fr [12, ...]) into boxes (box [6, ...]; both broadcast against mint
+    and cap) if they enter before cap, else 1e30."""
     near, far = [], []
     for a in range(3):
-        t0 = box[a] * f[:, 6 + a] - f[:, 9 + a]
-        t1 = box[a + 3] * f[:, 6 + a] - f[:, 9 + a]
+        t0 = box[a] * fr[6 + a] - fr[9 + a]
+        t1 = box[a + 3] * fr[6 + a] - fr[9 + a]
         near.append(torch.minimum(t0, t1))
         far.append(torch.maximum(t0, t1))
     tnear = torch.maximum(torch.maximum(near[0], near[1]),
@@ -96,6 +109,32 @@ def leaf_major_rows(tris):
     def rows(base):
         return table[base // CLUSTER].unbind(1)
     return rows
+
+
+def leaf_ref(rows, ln, base, id0, f, mint, best):
+    """The 32 triangles of the leaves at slot bases base [k] for lanes ln
+    [k] (frame rows f [k, 12], min t mint [k]) as one [k, 32] block: each
+    lane keeps the smallest valid t below its best t, the lowest k on
+    ties, which is what the kernel's in-order loop with a strict `<`
+    keeps. best = (t, u, v, prim) [N], updated in place; a hit's prim is
+    id0 + k."""
+    best_t, best_u, best_v, best_p = best
+    (nx, ny, nz, k0, b1x, b1y, b1z, c1, b2x, b2y, b2z, c2) = rows(base)
+    ox, oy, oz, dx, dy, dz = (f[:, c:c + 1] for c in range(6))
+    t = (k0 - (ox * nx + oy * ny + oz * nz)) \
+        / (dx * nx + dy * ny + dz * nz)  # [k, 32]
+    u = (ox * b1x + oy * b1y + oz * b1z - c1) \
+        + t * (dx * b1x + dy * b1y + dz * b1z)
+    v = (ox * b2x + oy * b2y + oz * b2z - c2) \
+        + t * (dx * b2x + dy * b2y + dz * b2z)
+    ok = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= mint[:, None])
+    tk, kk = torch.where(ok, t, float("inf")).min(dim=1)
+    better = tk < best_t[ln]
+    w, kw = ln[better], kk[better][:, None]
+    best_t[w] = tk[better]
+    best_u[w] = torch.gather(u[better], 1, kw)[:, 0]
+    best_v[w] = torch.gather(v[better], 1, kw)[:, 0]
+    best_p[w] = (id0 + kk)[better].to(torch.int32)
 
 
 def walk_ref(rows, node_aabb, node_meta, org, direction, min_t, max_t,
@@ -190,25 +229,8 @@ def walk_ref(rows, node_aabb, node_meta, org, direction, min_t, max_t,
         sel = live & (right < 0) & (base >= 0)
         if bool(sel.any()):  # triangle leaves
             ln, b = lane[sel], base[sel]
-            (nx, ny, nz, k0, b1x, b1y, b1z, c1,
-             b2x, b2y, b2z, c2) = rows(b)
-            f = cur[ln]
-            ox, oy, oz, dx, dy, dz = (f[:, c:c + 1] for c in range(6))
-            t = (k0 - (ox * nx + oy * ny + oz * nz)) \
-                / (dx * nx + dy * ny + dz * nz)  # [n, 32]
-            u = (ox * b1x + oy * b1y + oz * b1z - c1) \
-                + t * (dx * b1x + dy * b1y + dz * b1z)
-            v = (ox * b2x + oy * b2y + oz * b2z - c2) \
-                + t * (dx * b2x + dy * b2y + dz * b2z)
-            ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                  & (t >= min_t[ln][:, None]))
-            tk, kk = torch.where(ok, t, float("inf")).min(dim=1)
-            better = tk < best_t[ln]
-            w, kw = ln[better], kk[better][:, None]
-            best_t[w] = tk[better]
-            best_u[w] = torch.gather(u[better], 1, kw)[:, 0]
-            best_v[w] = torch.gather(v[better], 1, kw)[:, 0]
-            best_p[w] = (b + fid[ln] + kk)[better].to(torch.int32)
+            leaf_ref(rows, ln, b, b + fid[ln], cur[ln], min_t[ln],
+                     (best_t, best_u, best_v, best_p))
             if any_hit:  # the walk ends after the first leaf with a hit
                 sp[ln[best_p[ln] >= 0]] = 0
             if counts:
@@ -218,3 +240,45 @@ def walk_ref(rows, node_aabb, node_meta, org, direction, min_t, max_t,
                            "entries")
     out = (best_t, best_u, best_v, best_p)
     return (*out, work) if counts else out
+
+
+def cluster_walk_ref(tris, cluster_aabb, org, direction, min_t, max_t,
+                     any_hit=False, counts=False):
+    """Each lane's walk of the clusters its ray enters, the dense_v4
+    kernels' `per_ray::cluster_walk`: the slab test against every box
+    (rows 0:6 of cluster_aabb [>= 6, M]) capped at max_t, the clusters
+    entered in order of entry t (stable: ties by the lower cluster id),
+    then front to back the 32 triangles of cluster c (slots 32 c + k of
+    the attr-major table tris [12, 32 M]) until `tn (1 - 1e-6) - 1e-6 >
+    best t`, with any_hit until the first cluster that gives a hit.
+    Returns (t, u, v, prim) and, with counts, [N, 3] int64 per lane:
+    ray-triangle tests, ray-box tests (M per live lane), 0. t = max_t
+    where nothing was hit; a lane with max_t < min_t tests nothing."""
+    n = org.shape[0]
+    dev = org.device
+    f = _frame(org, direction)
+    live = max_t >= min_t
+    tn = _enter(cluster_aabb[:6, None, :], f.T[:, :, None], min_t[:, None],
+                max_t[:, None])  # [n, M]
+    key, order = torch.sort(torch.where(live[:, None], tn, _BIG), dim=1,
+                            stable=True)
+    cnt = (key < _BIG).sum(dim=1)
+    best = (max_t.clone(), torch.zeros_like(max_t), torch.zeros_like(max_t),
+            torch.full((n,), -1, dtype=torch.int32, device=dev))
+    done = torch.zeros((n,), dtype=torch.bool, device=dev)
+    work = torch.zeros((n, 3), dtype=torch.int64, device=dev)
+    work[:, 1] = live * cluster_aabb.shape[1]
+    rows = attr_major_rows(tris)
+    for j in range(int(cnt.max()) if n else 0):
+        # the lane's own cull: later clusters enter no earlier
+        ln = torch.nonzero((j < cnt) & ~done & (
+            key[:, j] * (1.0 - 1e-6) - 1e-6 <= best[0])).squeeze(1)
+        if ln.numel() == 0:
+            break
+        base = order[ln, j] * CLUSTER
+        leaf_ref(rows, ln, base, base, f[ln], min_t[ln], best)
+        if counts:
+            work[ln, 0] += CLUSTER
+        if any_hit:  # the walk ends after the first cluster with a hit
+            done = best[3] >= 0
+    return (*best, work) if counts else best

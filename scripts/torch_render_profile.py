@@ -18,9 +18,9 @@ turns (A, B, B, A). For each path the scene is rendered once at 32x32x1
 (host clock around work that ends in a synchronize), then, unless
 --no-profile, once under torch.profiler; the idle share is 1 - device
 busy / the median unprofiled wall. The trace kernels' device time is
-printed in all and, for the mid, large, hair and instanced paths, the
-dense_v5 (with its dual), dense_v5l, dense_curve or dense_v5i kernels'
-alone. Fails without a CUDA device.
+printed in all and, for the cornellbox, mid, large, hair and instanced
+paths, the dense_v4 (with its dual), dense_v5 (with its dual), dense_v5l,
+dense_curve or dense_v5i kernels' alone. Fails without a CUDA device.
 """
 from __future__ import annotations
 
@@ -38,11 +38,12 @@ SCENES = {"cornellbox": dict(subdiv=3), "mid": dict(subdiv=4),
           "hair": dict(subdiv=3, with_hair=True), "instanced": None}
 CURVE = "curve_kernel"  # csrc/dense_curve.cu
 V5I = "v5i_kernel"  # csrc/dense_v5i.cu
+V4 = "v4_kernel"  # csrc/dense_v4.cu: dense_v4 and its dual
 V5 = "v5_kernel"  # csrc/dense_v5.cu: dense_v5 and its dual
 V5L = "v5l_kernel"  # csrc/dense_v5.cu: dense_v5l
-OWN = (V5, "trace_kernel", "trace_dual_kernel", CURVE, V5I, V5L)
+OWN = (V4, V5, CURVE, V5I, V5L)
 # the kernel each path reports
-ONE = {"instanced": V5I, "large": V5L, "mid": V5}
+ONE = {"cornellbox": V4, "instanced": V5I, "large": V5L, "mid": V5}
 
 
 def profile(path, run, size, spp, wall, iters, card):
