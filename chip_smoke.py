@@ -28,16 +28,18 @@ render paths on one card:
 
 all at max_steps=12, k_volume=3. Phase 3 checks each kernel against its
 plain torch version at its path's shapes and times both (dense_curve also
-on a dense tuft of 8192 strands, 3584 clusters; the legacy v1 kernel,
-which no render path reaches, at the file path's shapes; the per-ray
-dense_v4, dense_v4 dual, dense_v5, dense_v5 dual, dense_v5l and dense_v5i
+on a dense tuft of 8192 strands, 3584 clusters, its twin on the first
+N_PLAIN_TUFT rays; the legacy v1 kernel, which no render path reaches,
+at the file path's shapes; the per-ray dense_v4, dense_v4 dual,
+dense_v5, dense_v5 dual, dense_v5l, dense_v5i, dense_curve and dense_v3
 kernels bit-equal to their twins, whose counts of each lane's tests print
 beside the need, and each dual's closest answer bit-equal to its single
-kernel's; dense_v4 also timed as a whole wrapper call); phase 4 checks small
-renders on the card against the same renders on the CPU (the instanced
-one on a 16-instance cut of its scene, PARITY_INSTANCED; the file scene
-through both legacy backends); phase 5 renders each path with
-every launch counter set to 0 just before and read just after. Exits
+kernel's; dense_v4 and dense_v3 also timed as whole wrapper calls);
+phase 4 checks small renders on the card against the same renders on the
+CPU (the instanced one on a 16-instance cut of its scene,
+PARITY_INSTANCED; the file scene through both legacy backends); phase 5
+renders each path with every launch counter set to 0 just before and
+read just after. Exits
 non-zero, printing no result, on any failure or without a CUDA card. The
 last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -71,7 +73,7 @@ FILE_FACES = 2572  # build_demo_scene(subdiv=3): 5 walls, light, 2 bodies
 # the full one takes seconds a trace
 PARITY_INSTANCED = dict(side=4, subdivs=(2, 1))
 DENSE_TUFT = 8192  # strands of the dense tuft that times dense_curve
-N_PLAIN_TUFT = 4096  # rays the plain walk checks on it (its time bound)
+N_PLAIN_TUFT = 4096  # rays the twin checks on it (its time bound)
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
 N_SINGLE = 24576  # default volume window (3/8 of the lanes): substeps 2-3
 RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
@@ -741,9 +743,10 @@ def curve_need(aabb, org, direction, min_t, max_t, cap, occluded=None):
 
 def curve_case(dense_curve, name, segs, aabb, rays, any_hit, card,
                n_plain=None, plain_reps=3):
-    """dense_curve kernel vs `_walk_ref` (on the first n_plain rays, whole
-    128-lane groups, when given): equal hit masks and sub, t/u/v within
-    RTOL; times and the bound of the tests each lane needs."""
+    """The per-ray dense_curve kernel vs its twin `_walk_ref` (on the first
+    n_plain rays when given: a lane's answer is its own): t, u, v, sub
+    equal to the bit, the twin's own counts of each lane's tests beside
+    the need (`curve_need`); CUDA-event times and the bound."""
     from pbrlab_tpu_torch.core.math import INF
 
     org, direction, min_t, max_t = rays
@@ -751,15 +754,14 @@ def curve_case(dense_curve, name, segs, aabb, rays, any_hit, card,
     got = dense_curve._walk_cuda(segs, aabb, *rays, any_hit=any_hit)
     k = n if n_plain is None else n_plain
     part = [r[:k].contiguous() for r in rays]
-    ref = dense_curve._walk_ref(segs, aabb, *part, any_hit=any_hit)
+    *ref, work = dense_curve._walk_ref(segs, aabb, *part, any_hit=any_hit,
+                                       counts=True)
     torch.cuda.synchronize()
+    for key, x, y in zip("tuvs", got, ref):
+        if not torch.equal(x[:k], y):
+            raise AssertionError(f"{name}: {key} differs from the twin on "
+                                 f"{int((x[:k] != y).sum())} lanes")
     hit = ref[3] >= 0
-    if not torch.equal(got[3][:k], ref[3]):
-        raise AssertionError(f"{name}: sub differs on "
-                             f"{int((got[3][:k] != ref[3]).sum())} lanes")
-    for i, key in enumerate("tuv"):
-        torch.testing.assert_close(got[i][:k][hit], ref[i][hit], rtol=RTOL,
-                                   atol=1e-6, msg=f"{name}: {key} differs")
     err = float((got[0][:k][hit] - ref[0][hit]).abs().max()) if hit.any() \
         else 0.0
     ghit = got[3] >= 0
@@ -767,6 +769,8 @@ def curve_case(dense_curve, name, segs, aabb, rays, any_hit, card,
     tests, boxes = curve_need(aabb, org, direction, min_t, max_t,
                               max_t if any_hit else cap,
                               ghit if any_hit else None)
+    need_k = curve_need(aabb, *part, part[3] if any_hit else cap[:k],
+                        hit if any_hit else None)[0]
     ms = cuda_ms(lambda: dense_curve._walk_cuda(segs, aabb, *rays,
                                                 any_hit=any_hit))
     plain = cuda_ms(lambda: dense_curve._walk_ref(segs, aabb, *part,
@@ -774,11 +778,14 @@ def curve_case(dense_curve, name, segs, aabb, rays, any_hit, card,
                     reps=plain_reps, warmup=1)
     b_ms, b_by = bound(nbytes(segs, aabb, *rays) + 16 * n,
                        OPS_RIBBON * tests + OPS_BOX * boxes)
-    print(f"{name}: N={n} hits={int(ghit.sum())} (plain on {k}: equal sub, "
-          f"max|dt|={err:.3g}, its groups entered {int(ref[4].sum())} "
-          f"clusters); kernel {ms:.4f} ms, plain walk {plain:.4f} ms on {k} "
+    walked = int(work[:, 0].sum())
+    print(f"{name}: N={n} hits={int(ghit.sum())} (twin on {k}: t, u, v, "
+          f"sub bit-equal); kernel {ms:.4f} ms, twin {plain:.4f} ms on {k} "
           f"rays, bound {b_ms:.4f} ms ({b_by}; {tests} ray-ribbon and "
-          f"{boxes} ray-box tests needed) ({card})")
+          f"{boxes} ray-box tests needed; on the twin's {k} rays {need_k} "
+          f"ribbon tests needed, the walk did {walked}, "
+          f"{walked / max(need_k, 1):.3f}x, and {int(work[:, 1].sum())} "
+          f"ray-box tests) ({card})")
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err)
 
@@ -792,14 +799,14 @@ def curve_phase(dense_curve, scene, path_rays_, card):
 
     dual, single = path_rays_
     segs, aabb = scene["dense_segs"], scene["dense_seg_aabb"]
-    closest = dense_curve.pad_rays(*dual[:4])
-    shadow = dense_curve.pad_rays(dual[0], *dual[4:])
+    closest = dense_curve.clamped_rays(*dual[:4])
+    shadow = dense_curve.clamped_rays(dual[0], *dual[4:])
     rec = {"curve": curve_case(dense_curve, "dense_curve closest", segs, aabb,
                                closest, False, card)}
     curve_case(dense_curve, "dense_curve any-hit (shadow rays)", segs, aabb,
                shadow, True, card)
     curve_case(dense_curve, "dense_curve closest", segs, aabb,
-               dense_curve.pad_rays(*single), False, card)
+               dense_curve.clamped_rays(*single), False, card)
 
     t0 = time.perf_counter()
     tuft = make_demo_hair(num_strands=DENSE_TUFT, base=(0.0, 1.35, 0.0),
@@ -936,22 +943,23 @@ def v5i_phase(dense_v5i, scene, path_rays_, card):
     return rec
 
 
-def legacy_case(name, module, kw, tables, rays, any_hit, card):
-    """One legacy kernel vs its plain version on padded rays (v3 over its
-    prepared survivor lists): t, u, v, prim equal to the bit; times (the
+def legacy_case(name, module, tables, rays, any_hit, card):
+    """One legacy kernel vs its plain version: v1 and v2 (group walks) on
+    padded rays, v3 (per ray) on the rays themselves with its twin's own
+    counts of each lane's tests; t, u, v, prim equal to the bit; times (the
     kernel median of 10 CUDA-event launches, the plain version median of
     3) and the bound of the tests each lane needs (`curve_need`'s slab
     test is the legacy kernels' own)."""
     from pbrlab_tpu_torch.ops import dense, dense_v3
-    from pbrlab_tpu_torch.ops.dense_curve import pad_rays
+    from pbrlab_tpu_torch.ops.dense_curve import clamped_rays
 
     tris, aabb = tables
-    padded = pad_rays(*rays)
-    args = (tris, aabb)
-    if module is dense_v3:
-        args = (tris, *module.survivor_lists(aabb, *padded, **kw))
-    got = module._walk_cuda(*args, *padded, any_hit=any_hit)
-    ref = module._walk_ref(*args, *padded, any_hit=any_hit)
+    walks_per_ray = module is dense_v3
+    lanes = (clamped_rays if walks_per_ray else dense.pad_rays)(*rays)
+    args = (tris, aabb, *lanes)
+    got = module._walk_cuda(*args, any_hit=any_hit)
+    ref = module._walk_ref(*args, any_hit=any_hit,
+                           **({"counts": True} if walks_per_ray else {}))
     torch.cuda.synchronize()
     for key, a, b in zip("tuvp", got, ref):
         if not torch.equal(a, b):
@@ -968,17 +976,20 @@ def legacy_case(name, module, kw, tables, rays, any_hit, card):
     else:  # closest (v1 answers the closest hit for any-hit queries too)
         tests, boxes = curve_need(aabb, org, direction, min_t, max_t,
                                   torch.where(hit, ref[0][:n], max_t))
-    ms = cuda_ms(lambda: module._walk_cuda(*args, *padded, any_hit=any_hit),
-                 reps=10)
-    plain = cuda_ms(lambda: module._walk_ref(*args, *padded,
-                                             any_hit=any_hit),
+    ms = cuda_ms(lambda: module._walk_cuda(*args, any_hit=any_hit), reps=10)
+    plain = cuda_ms(lambda: module._walk_ref(*args, any_hit=any_hit),
                     reps=3, warmup=1)
     b_ms, b_by = bound(nbytes(tris, aabb, *rays) + 16 * n,
                        OPS_TRI * tests + OPS_BOX * boxes)
+    walk = ""
+    if walks_per_ray:
+        walked = int(ref[4][:, 0].sum())
+        walk = (f"; the walk did {walked}, {walked / max(tests, 1):.3f}x, "
+                f"and {int(ref[4][:, 1].sum())} ray-box tests")
     print(f"{name}: N={n} hits={int(hit.sum())} t, u, v, prim bit-equal to "
           f"the plain version (max|dt|={err:.3g}); kernel {ms:.4f} ms, "
           f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {tests} "
-          f"ray-triangle and {boxes} ray-box tests needed) ({card})")
+          f"ray-triangle and {boxes} ray-box tests needed{walk}) ({card})")
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err)
 
@@ -986,26 +997,23 @@ def legacy_case(name, module, kw, tables, rays, any_hit, card):
 def legacy_phase(modules, scene, path_rays_, card):
     """The three legacy kernels at the file path's shapes (its legacy
     tables: 2572 faces, 2688 columns, 21 clusters): closest at N_DUAL,
-    any-hit on the shadow rays, closest at N_SINGLE; v3 with its default
-    beam cull (the render's), timed also as a whole call with its
-    prelude."""
+    any-hit on the shadow rays, closest at N_SINGLE; v3 timed also as a
+    whole wrapper call."""
     dual, single = path_rays_
     tables = (scene["dense_tris"], scene["dense_cluster_aabb"])
     shapes = (("closest", dual[:4], False), ("any-hit (shadow rays)",
                                              (dual[0], *dual[4:]), True),
               ("closest", single, False))
     rec = {}
-    for key, module, kw in (("v3", modules["v3"], {"cull": "beam"}),
-                            ("v2", modules["v2"], {}),
-                            ("v1", modules["v1"], {})):
-        cases = [legacy_case(f"dense {key} {label}", module, kw, tables,
+    for key in ("v3", "v2", "v1"):
+        cases = [legacy_case(f"dense {key} {label}", modules[key], tables,
                              rays, any_hit, card)
                  for label, rays, any_hit in shapes]
         rec[key] = cases[0]
     v3 = modules["v3"]
     whole = cuda_ms(lambda: v3.dense_trace_v3(*tables, *dual[:4]), reps=10)
-    print(f"dense_trace_v3 N={N_DUAL} closest, whole call (prelude: beam "
-          f"cull, argsort, padding): {whole:.4f} ms against "
+    print(f"dense_trace_v3 N={N_DUAL} closest, whole call (no prelude: "
+          f"clamp, kernel, the miss's INF): {whole:.4f} ms against "
           f"{rec['v3']['ms']:.4f} ms in the kernel ({card})")
     return rec
 
@@ -1206,7 +1214,7 @@ def main():
              inst["v5i.closest"] + inst["v5i.any_hit"], rec["v5i"])]
     legacy_src = "pbrlab_tpu_torch/csrc/dense_legacy.cu"
     f3, f2 = launches["file dense3"], launches["file dense"]
-    rows += [("dense_v3_trace", legacy_src,
+    rows += [("dense_v3_trace", "pbrlab_tpu_torch/csrc/dense_v3.cu",
               "pbrlab_tpu/ops/pallas/dense_v3.py:56",
               f3["v3.closest"] + f3["v3.any_hit"], rec["v3"]),
              ("dense_v2_trace", legacy_src,

@@ -1,14 +1,14 @@
-// Legacy dense triangle trace kernels v1, v2, v3 for Hopper (sm_90a),
-// plain C interface.
+// Legacy dense triangle trace kernels v1 and v2 for Hopper (sm_90a), plain
+// C interface.
 //
 // Replaces the Pallas TPU kernels of the JAX package's brute-force
 // backends:
 //   dense_v1_trace <- pbrlab_tpu/ops/pallas/dense.py     _trace_kernel
 //   dense_v2_trace <- pbrlab_tpu/ops/pallas/dense_v2.py  _trace_kernel
-//   dense_v3_trace <- pbrlab_tpu/ops/pallas/dense_v3.py  _trace_kernel
-// Bound with ctypes from pbrlab_tpu_torch/ops/dense.py, dense_v2.py and
-// dense_v3.py, which hold the plain torch versions (_walk_ref), the host
-// packing (dense.pack_triangles) and v3's cull prelude.
+// Bound with ctypes from pbrlab_tpu_torch/ops/dense.py and dense_v2.py,
+// which hold the plain torch versions (_walk_ref) and the host packing
+// (dense.pack_triangles). The third legacy kernel, dense_v3, walks per ray
+// (csrc/dense_v3.cu).
 //
 // Inputs: tris [12, Fpad], one column of linear forms per Morton-sorted
 // triangle (n, k0 = n.v0, b1, c1 = b1.v0, b2, c2 = b2.v0; padding columns
@@ -18,44 +18,38 @@
 // the JAX wrappers pad (org 0, dir 1, min_t 0, max_t -1).
 //
 // Design: one block of 128 threads, one thread per ray. The TPU's group
-// decisions stay group decisions, because a grazing ray can miss the slab
-// test and still hit a triangle, so the set of clusters visited changes
-// hits, not only time:
+// decisions stay group decisions, so the kernels stay bit-equal to their
+// plain versions, which keep the TPU's semantics:
 // * v1 decides per aligned 8-ray block (its sublanes): a block enters a
 //   cluster when any of its 8 rays' slab tests passes against the ray's
 //   max t (a ballot over the warp, masked to the 8 lanes);
 // * v2 decides per 128-ray group: any lane's slab test against its
 //   running best (__syncthreads_or), and with any-hit it stops once every
-//   lane has a hit (__syncthreads_and);
-// * v3 walks its group's survivor list front to back and stops when the
-//   largest running best over all 8 slots of all 128 lanes is no more than
-//   the next survivor's padded tnear (a block max), or, any-hit, when every
-//   lane has a hit.
+//   lane has a hit (__syncthreads_and).
 // An entered cluster's 128 columns (6 KB) are staged into shared memory,
 // and every thread of the block reads them as broadcasts.
 //
-// Ties: v2 and v3 keep the TPU's 8 per-slot bests (slot = id mod 8, the
+// Ties: v2 keeps the TPU's 8 per-slot bests (slot = id mod 8, the
 // tri-step sublane) in registers, with max_t folded into the initial best
-// and a strict t < best, and resolve them at the end as the Pallas body
-// does (least t, the lowest slot with a hit). v3 needs them anyway: its
-// exit test reads max over the slots, where a slot without a hit still
-// holds max_t. v1's slot is the triangle's lane in its cluster (128 of
-// them), so it keeps one best and takes a candidate when its t is smaller,
-// or equal with a lower lane: the lexicographic minimum of
-// (t, id mod 128, cluster) that the TPU's per-lane bests give.
+// and a strict t < best, and resolves them at the end as the Pallas body
+// does (least t, the lowest slot with a hit). v1's slot is the triangle's
+// lane in its cluster (128 of them), so it keeps one best and takes a
+// candidate when its t is smaller, or equal with a lower lane: the
+// lexicographic minimum of (t, id mod 128, cluster) that the TPU's
+// per-lane bests give.
 //
 // Arithmetic: the Pallas bodies' ray-triangle test on the linear forms, in
-// their operand order (dense.py:173-187, dense_v2.py:103-117,
-// dense_v3.py:121-135); the library is built with --fmad=false and IEEE
-// division, so the plain torch versions give the same bits. prim is int32
-// here and in the plain versions (the TPU carries it as float32, exact
-// below 2^24 faces: ROADMAP C9).
+// their operand order (dense.py:173-187, dense_v2.py:103-117); the library
+// is built with --fmad=false and IEEE division, so the plain torch
+// versions give the same bits. prim is int32 here and in the plain
+// versions (the TPU carries it as float32, exact below 2^24 faces:
+// ROADMAP C9).
 //
 // What bounds it: f32 operations, 40 per ray-triangle test of every
 // cluster the thread's group (v1: 8-ray block) enters, and 27 per ray-box
-// test (v1, v2: every cluster, every ray). Known first-cut weaknesses:
-// every lane pays for the union of the clusters its group enters; a block
-// stages one cluster at a time behind a barrier (no double buffering).
+// test (every cluster, every ray). Every lane pays for the union of the
+// clusters its group enters, and a block stages one cluster at a time
+// behind a barrier: v2 is the next kernel to walk per ray (ROADMAP B3).
 
 #include <cuda_runtime.h>
 
@@ -63,7 +57,7 @@ namespace {
 
 constexpr int kLanes = 128;  // threads per block = rays per TPU group
 constexpr int kTris = 128;   // triangles per cluster
-constexpr int kSlots = 8;    // v2 / v3 per-slot bests (sublanes)
+constexpr int kSlots = 8;    // v2 per-slot bests (sublanes)
 constexpr int kSteps = kTris / kSlots;
 constexpr int kBlockLanes = 8;  // v1's ray block
 constexpr float kSlop = 1.00000024f;
@@ -194,7 +188,7 @@ __global__ void __launch_bounds__(kLanes) v1_kernel(
   out_prim[i] = best_p;
 }
 
-// v2 / v3 per-lane state: the TPU's 8 per-slot bests
+// v2 per-lane state: the TPU's 8 per-slot bests
 struct Slots {
   float t[kSlots], u[kSlots], v[kSlots];
   int p[kSlots];
@@ -212,12 +206,6 @@ struct Slots {
     float x = t[0];
 #pragma unroll
     for (int s = 1; s < kSlots; ++s) x = pmin(x, t[s]);
-    return x;
-  }
-  __device__ __forceinline__ float max_t() const {
-    float x = t[0];
-#pragma unroll
-    for (int s = 1; s < kSlots; ++s) x = pmax(x, t[s]);
     return x;
   }
   __device__ __forceinline__ bool found() const {
@@ -295,52 +283,6 @@ __global__ void __launch_bounds__(kLanes) v2_kernel(
   best.write(i, out_t, out_u, out_v, out_prim);
 }
 
-// the largest x over the block (jnp.max), every thread gets it
-__device__ __forceinline__ float block_max(float x, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    x = pmax(x, __shfl_xor_sync(0xffffffffu, x, o));
-  }
-  __syncthreads();  // the previous readers of red are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  return pmax(pmax(red[0], red[1]), pmax(red[2], red[3]));
-}
-
-__global__ void __launch_bounds__(kLanes) v3_kernel(
-    const float* __restrict__ tris, int fpad, const int* __restrict__ surv,
-    const int* __restrict__ cnt, const float* __restrict__ tnear, int m,
-    const float* __restrict__ org, const float* __restrict__ dir,
-    const float* __restrict__ min_t, const float* __restrict__ max_t,
-    int any_hit, float* __restrict__ out_t, float* __restrict__ out_u,
-    float* __restrict__ out_v, int* __restrict__ out_prim) {
-  __shared__ float rows[12 * kTris];
-  __shared__ float red[kLanes / 32];
-  const int g = blockIdx.x;
-  const int i = g * kLanes + threadIdx.x;
-  const Ray r = load_ray(org, dir, min_t, max_t, i);
-  Slots best;
-  best.init(r.maxt);
-  const int count = cnt[g];
-  const int* gsurv = surv + static_cast<size_t>(g) * m;
-  const float* gnear = tnear + static_cast<size_t>(g) * m;
-  for (int si = 0;; ++si) {
-    // the Pallas while-loop test (dense_v3.py:90-102), block-uniform
-    const float gmax = block_max(best.max_t(), red);
-    const float nxt = gnear[si < m - 1 ? si : m - 1];
-    // 0.999999f is 1 - 1e-6 rounded to float, as the Pallas body has it
-    bool go = si < count && gmax > nxt * 0.999999f - 1e-6f;
-    if (any_hit && __syncthreads_and(best.found())) go = false;
-    if (!go) break;
-    const int c = gsurv[si];
-    stage(tris, fpad, c, rows);
-    __syncthreads();
-    best.visit(rows, c, r);
-    __syncthreads();  // every thread is done with the rows
-  }
-  best.write(i, out_t, out_u, out_v, out_prim);
-}
-
 }  // namespace
 
 extern "C" int dense_v1_trace(const float* tris, int fpad, const float* aabb,
@@ -365,20 +307,6 @@ extern "C" int dense_v2_trace(const float* tris, int fpad, const float* aabb,
     v2_kernel<<<n / kLanes, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
         tris, fpad, aabb, m, org, dir, min_t, max_t, any_hit, out_t, out_u,
         out_v, out_prim);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int dense_v3_trace(const float* tris, int fpad, const int* surv,
-                              const int* cnt, const float* tnear, int m,
-                              const float* org, const float* dir,
-                              const float* min_t, const float* max_t,
-                              int any_hit, int n, float* out_t, float* out_u,
-                              float* out_v, int* out_prim, void* stream) {
-  if (n > 0) {
-    v3_kernel<<<n / kLanes, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-        tris, fpad, surv, cnt, tnear, m, org, dir, min_t, max_t, any_hit,
-        out_t, out_u, out_v, out_prim);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,8 +35,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;      // threads a block, one ray each
-constexpr int kMaxClusters = 256;  // ops/dense_v4.py MAX_CLUSTERS
+constexpr int kThreads = 128;  // threads a block, one ray each
+// ops/dense_v4.py MAX_CLUSTERS: the clusters fit one list, one chunk
+constexpr int kMaxClusters = per_ray::kList;
 
 struct Params {
   per_ray::Tables tb;
@@ -55,30 +56,45 @@ struct Params {
   unsigned char* out_occ;  // dual
 };
 
+// one query of one ray over the clusters: the boxes through
+// per_ray::slab, cluster c's 32 triangles the leaf at slot base 32 c
+template <bool kAnyHit>
+__device__ __forceinline__ void query(const per_ray::Tables& tb,
+                                      const per_ray::Frame& f, float mint,
+                                      per_ray::Hit& h,
+                                      int2 (&lst)[per_ray::kList]) {
+  per_ray::cluster_walk<kAnyHit>(
+      tb.nodes, mint,
+      [&](int c, float cap) { return per_ray::slab(tb, c, f, mint, cap); },
+      [&](int c, per_ray::Hit& hit) {
+        const int base = c * per_ray::kCluster;
+        per_ray::leaf<false>(tb, base, f, mint, base, hit);
+      },
+      h, lst);
+}
+
 // ray i's closest (or any) hit; with kDual then its shadow any-hit
 template <bool kAnyHit, bool kDual>
 __global__ void __launch_bounds__(kThreads) v4_kernel(const Params p) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= p.n) return;
   const float ox = p.org[3 * i], oy = p.org[3 * i + 1], oz = p.org[3 * i + 2];
-  int2 lst[kMaxClusters];
+  int2 lst[per_ray::kList];
   per_ray::Hit h = {p.max_t[i], 0.f, 0.f, -1};
-  per_ray::cluster_walk<kAnyHit>(
-      p.tb,
-      per_ray::make_frame(ox, oy, oz, p.dir[3 * i], p.dir[3 * i + 1],
-                          p.dir[3 * i + 2]),
-      p.min_t[i], h, lst);
+  query<kAnyHit>(p.tb,
+                 per_ray::make_frame(ox, oy, oz, p.dir[3 * i],
+                                     p.dir[3 * i + 1], p.dir[3 * i + 2]),
+                 p.min_t[i], h, lst);
   p.out_t[i] = h.t;
   p.out_u[i] = h.u;
   p.out_v[i] = h.v;
   p.out_prim[i] = h.prim;
   if (kDual) {
     per_ray::Hit s = {p.smax_t[i], 0.f, 0.f, -1};
-    per_ray::cluster_walk<true>(
-        p.tb,
-        per_ray::make_frame(ox, oy, oz, p.sdir[3 * i], p.sdir[3 * i + 1],
-                            p.sdir[3 * i + 2]),
-        p.smin_t[i], s, lst);
+    query<true>(p.tb,
+                per_ray::make_frame(ox, oy, oz, p.sdir[3 * i],
+                                    p.sdir[3 * i + 1], p.sdir[3 * i + 2]),
+                p.smin_t[i], s, lst);
     p.out_occ[i] = s.prim >= 0 ? 1 : 0;
   }
 }

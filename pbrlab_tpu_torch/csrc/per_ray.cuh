@@ -1,7 +1,8 @@
 // Per-ray walks for Hopper (sm_90a): the BVH walk of the dense_v5, dense_v5
 // dual and dense_v5l kernels (csrc/dense_v5.cu) and the dense_v5i kernel
-// (csrc/dense_v5i.cu), and the cluster walk of the dense_v4 kernels
-// (csrc/dense_v4.cu; `cluster_walk` at the end of this file).
+// (csrc/dense_v5i.cu), and the cluster walk (`cluster_walk` at the end of
+// this file) of the dense_v4 kernels (csrc/dense_v4.cu), the dense_curve
+// kernel (csrc/dense_curve.cu) and the dense_v3 kernel (csrc/dense_v3.cu).
 //
 // One thread walks one ray alone, with its own stack of (node, entry t)
 // pairs: no block reduction, no vote and no barrier anywhere in the walk.
@@ -51,6 +52,7 @@ constexpr int kCluster = 32;
 constexpr float kBig = 1e30f;
 constexpr float kSlop = 1.00000024f;
 constexpr float kEps = 1e-12f;
+constexpr int kList = 256;  // clusters in a lane's list: one chunk
 
 // jnp / torch maximum and minimum: NaN in either operand gives NaN
 __device__ __forceinline__ float pmax(float a, float b) {
@@ -236,38 +238,91 @@ __device__ __forceinline__ void walk(const Tables& tb, const Frame& world,
   }
 }
 
-// The cluster walk of one ray (dense_v4; no tree): tb.naabb holds the
-// boxes of tb.nodes clusters, cluster c's 32 triangles are the leaf at
-// slot base 32 c. The thread slab-tests its ray against every box in
-// cluster order, capped at its max t (every lane reads the same box at the
-// same step: a broadcast), keeps the clusters it enters in lst as
-// (cluster, entry t bits) ordered by entry t (inserted behind equal ones:
-// ties keep the lower cluster id), then walks the list front to back with
-// the pad of walk, stopping once `tn (1 - 1e-6) - 1e-6 > best t`, and with
-// kAnyHit after the first cluster that gives it a hit. h as in walk; lst
-// has room for every cluster (kMax >= tb.nodes, which the caller checks).
-template <bool kAnyHit, int kMax>
-__device__ __forceinline__ void cluster_walk(const Tables& tb, const Frame& f,
-                                             float mint, Hit& h,
-                                             int2 (&lst)[kMax]) {
+// The legacy dense kernels' slab test (dense_curve, dense_v3; the Pallas
+// bodies' `(box - o) * inv` form, with inv = 1 / d and a |d| < 1e-12
+// component taken as +1e-12 whatever its sign, `inv_up`): the entry t of
+// the ray into box c of aabb [>= 6, m] if it enters before cap, else
+// kBig. The entry t is not clipped below by min t.
+struct DiffRay {
+  float ox, oy, oz, ix, iy, iz;
+};
+
+__device__ __forceinline__ float inv_up(float d) {
+  return 1.0f / (fabsf(d) < kEps ? kEps : d);
+}
+
+__device__ __forceinline__ DiffRay diff_ray(float ox, float oy, float oz,
+                                            float dx, float dy, float dz) {
+  return {ox, oy, oz, inv_up(dx), inv_up(dy), inv_up(dz)};
+}
+
+__device__ __forceinline__ float slab_diff(const float* __restrict__ aabb,
+                                           int m, int c, const DiffRay& r,
+                                           float mint, float cap) {
+  const float tx0 = (__ldg(aabb + c) - r.ox) * r.ix;
+  const float tx1 = (__ldg(aabb + 3 * m + c) - r.ox) * r.ix;
+  const float ty0 = (__ldg(aabb + m + c) - r.oy) * r.iy;
+  const float ty1 = (__ldg(aabb + 4 * m + c) - r.oy) * r.iy;
+  const float tz0 = (__ldg(aabb + 2 * m + c) - r.oz) * r.iz;
+  const float tz1 = (__ldg(aabb + 5 * m + c) - r.oz) * r.iz;
+  const float tnear =
+      pmax(pmax(pmin(tx0, tx1), pmin(ty0, ty1)), pmin(tz0, tz1));
+  const float tfar =
+      pmin(pmin(pmax(tx0, tx1), pmax(ty0, ty1)), pmax(tz0, tz1));
+  return tnear <= tfar * kSlop && tfar >= mint && tnear <= cap ? tnear
+                                                                : kBig;
+}
+
+// The rule of the dense_curve and dense_v3 kernels: a candidate at t with
+// prim id beats h when its t is smaller, or equal with a lower slot (id
+// mod 8). The TPU keeps one best per slot with a strict `t < best` and at
+// the end takes the least t, the lowest slot on ties; one best per lane
+// with this rule keeps the same lexicographic minimum of (t, id mod 8),
+// the first visited on a full tie.
+__device__ __forceinline__ bool beats(float t, int id, const Hit& h) {
+  return t < h.t || (t == h.t && h.prim >= 0 && (id & 7) < (h.prim & 7));
+}
+
+// The cluster walk of one ray (no tree) over `clusters` clusters, in
+// chunks of kMax in cluster order. For each chunk the thread tests its ray
+// against the chunk's boxes in cluster order, `box(c, cap)` returning the
+// entry t into box c if the ray enters it before cap, else kBig, capped at
+// the lane's best t (every lane reads the same box at the same step: a
+// broadcast); keeps the clusters it enters in lst as (cluster, entry t
+// bits) ordered by entry t (inserted behind equal ones: ties keep the
+// lower cluster id); then walks the list front to back, `leaf(c, h)`
+// testing cluster c's primitives, until `tn (1 - 1e-6) - 1e-6 > best t`
+// (the pad of walk), and goes on to the next chunk. With kAnyHit the walk
+// ends after the first cluster that gives the lane a hit. h holds max t
+// and no hit on entry (a lane with max t < min t tests nothing) and the
+// lane's answer on exit. The leaf functor carries the cluster's size and
+// its primitive test: dense_v4's 32 triangles, dense_curve's 128
+// ribbons, dense_v3's 128 legacy triangles.
+template <bool kAnyHit, int kMax, class Box, class Leaf>
+__device__ __forceinline__ void cluster_walk(int clusters, float mint,
+                                             const Box& box, const Leaf& leaf,
+                                             Hit& h, int2 (&lst)[kMax]) {
   if (!(h.t >= mint)) return;  // a dead lane tests nothing
-  int cnt = 0;
 #pragma unroll 1
-  for (int c = 0; c < tb.nodes; ++c) {
-    const float tn = slab(tb, c, f, mint, h.t);
-    if (!(tn < kBig)) continue;
-    int j = cnt++;
-    for (; j > 0 && __int_as_float(lst[j - 1].y) > tn; --j) {
-      lst[j] = lst[j - 1];
+  for (int c0 = 0; c0 < clusters; c0 += kMax) {
+    const int c1 = min(c0 + kMax, clusters);
+    int cnt = 0;
+#pragma unroll 1
+    for (int c = c0; c < c1; ++c) {
+      const float tn = box(c, h.t);
+      if (!(tn < kBig)) continue;
+      int j = cnt++;
+      for (; j > 0 && __int_as_float(lst[j - 1].y) > tn; --j) {
+        lst[j] = lst[j - 1];
+      }
+      lst[j] = make_int2(c, __float_as_int(tn));
     }
-    lst[j] = make_int2(c, __float_as_int(tn));
-  }
 #pragma unroll 1
-  for (int j = 0; j < cnt; ++j) {
-    if (!(__int_as_float(lst[j].y) * 0.999999f - 1e-6f <= h.t)) break;
-    const int base = lst[j].x * kCluster;
-    leaf<false>(tb, base, f, mint, base, h);
-    if (kAnyHit && h.prim >= 0) break;
+    for (int j = 0; j < cnt; ++j) {
+      if (!(__int_as_float(lst[j].y) * 0.999999f - 1e-6f <= h.t)) break;
+      leaf(lst[j].x, h);
+      if (kAnyHit && h.prim >= 0) return;
+    }
   }
 }
 

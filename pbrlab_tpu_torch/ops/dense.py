@@ -42,9 +42,10 @@ import torch
 
 from ..core.math import INF
 from . import cuda_lib
-from .dense_curve import _inv, morton_order, pad_rays
+from .dense_curve import _inv, morton_order
 
 TRI_BLOCK = 128  # triangles per cluster (the TPU's lane count)
+LANES = 128  # rays per padded group (the TPU lane group; one CUDA block)
 RAY_BLOCK = 8  # rays that decide a cluster together (the TPU's sublanes)
 SLOP = 1.00000024  # the slab test's relative tolerance on tfar
 
@@ -210,6 +211,22 @@ def _walk_cuda(tris, aabb, org, direction, min_t, max_t, any_hit=False):
     cuda_lib.launched(f"dense v1 {kind}", rc)
     LAUNCHES[kind] += 1
     return t, u, v, prim
+
+
+def pad_rays(org, direction, min_t, max_t):
+    """Pad the lanes to whole 128-lane groups as the JAX wrappers pad (org
+    0, direction 1, min_t 0, max_t -1 = dead) and clamp max_t to INF."""
+    n = org.shape[0]
+    pad = -n % LANES
+
+    def padded(x, value):
+        if pad:
+            x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]),
+                                         value)])
+        return x.contiguous()
+
+    return (padded(org, 0.0), padded(direction, 1.0), padded(min_t, 0.0),
+            torch.clamp(padded(max_t, -1.0), max=INF))
 
 
 def finish(t, u, v, prim, n):

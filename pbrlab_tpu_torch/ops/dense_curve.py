@@ -21,18 +21,26 @@ so any algebraic rewrite gives another hit set on grazing lanes.
 Segment row (12 floats): 0:3 p0 | 3:6 e | 6 r0 | 7 dr | 8 p0.e | 9 e.e |
 10 u0 | 11 du. Padding rows have r0 = dr = 0 and never hit.
 
-The TPU semantics kept: lanes go in groups of 128, and a group enters a
-cluster when any of its lanes' slab test passes against that lane's
-running best t (the TPU's `jnp.any`), or, for any-hit, until every lane of
-the group has a hit. Inside an entered cluster every lane of the group
-tests all 128 segments. The TPU keeps a running best per sublane slot
-(segment id mod 8) with a strict `t < best`, and at the end takes the
-least t, the lowest slot on ties: the result is the lexicographic minimum
-of (t, id mod 8), the first visited on a full tie.
+The walk is per ray (`csrc/per_ray.cuh` `cluster_walk`, one thread a
+ray): in chunks of 256 clusters in Morton order, each lane slab-tests its
+ray against the chunk's boxes (the Pallas body's `(box - o) * inv`
+arithmetic) capped at its own best t, orders the clusters it enters by
+entry t and tests their 128 sub-segments front to back until its best t
+lies before the next entry; any-hit ends a lane's walk after the first
+cluster that gives it a hit. The TPU walks 128-lane groups instead: a
+group enters a cluster when any of its lanes' slab tests passes, and
+every lane of the group tests all 128 segments. The TPU keeps a running
+best per sublane slot (segment id mod 8) with a strict `t < best`, and
+at the end takes the least t, the lowest slot on ties; one best per lane
+with the rule of `per_ray.beats_ref` keeps the same lexicographic
+minimum of (t, id mod 8), the first visited on a full tie. Against the
+JAX package the two walks may differ on rays that graze a cluster box or
+a ribbon and on full ties (ROADMAP C3).
 
-The wrapper takes the kernel for CUDA tensors and the plain torch walk
-(`_walk_ref`) for CPU tensors; `dense_curve_trace_ref` runs the plain walk
-on any device, which is what the kernel is compared with on the card.
+The wrapper takes the kernel for CUDA tensors and the plain torch twin
+(`_walk_ref`, each lane's own walk) for CPU tensors;
+`dense_curve_trace_ref` runs the twin on any device, which is what the
+kernel is compared with on the card.
 `LAUNCHES` counts kernel launches per mode.
 """
 from __future__ import annotations
@@ -43,12 +51,9 @@ import numpy as np
 import torch
 
 from ..core.math import INF
-from . import cuda_lib
+from . import cuda_lib, per_ray
 
-LANES = 128  # rays per group (the TPU lane group; one CUDA block)
-SLOTS = 8
 SEG_BLOCK = 128  # sub-segments per Morton cluster
-STEPS = SEG_BLOCK // SLOTS
 
 LAUNCHES = {"closest": 0, "any_hit": 0}
 
@@ -128,62 +133,25 @@ def _inv(d):
     return 1.0 / torch.where(torch.abs(d) < 1e-12, 1e-12, d)
 
 
-def _walk_ref(segs, aabb, org, direction, min_t, max_t, any_hit=False):
-    """Plain torch version of the kernel on padded lanes (N a multiple of
-    128, max_t already clamped to INF). Clusters are a loop, because the
-    cull reads the running best; inside an entered cluster the 128
-    segments are tested at once as [G, 128 lanes, 16 steps, 8 slots]
-    against the per-slot bests from before the cluster, each slot keeping
-    its first least t: the same result as the TPU's 16 sequential steps,
-    whose strict `t < best` only ever accepts a smaller t.
+def _walk_ref(segs, aabb, org, direction, min_t, max_t, any_hit=False,
+              counts=False):
+    """Plain torch twin of the kernel (max_t already clamped to INF): each
+    lane's walk (`per_ray.cluster_walk` over `per_ray.diff_enter`), a
+    cluster's 128 ribbons tested as one [k, 128] block with the kernel's
+    operations and kept with `per_ray.beats_ref`. Returns (t, u, v, sub)
+    and, with counts, [N, 3] int64 per lane: ray-ribbon tests, ray-box
+    tests, 0. t = max_t and sub = -1 where nothing was hit."""
+    o = [org[:, k] for k in range(3)]
+    d = [direction[:, k] for k in range(3)]
+    lane = (*o, *d, min_t, o[0] * d[0] + o[1] * d[1] + o[2] * d[2],
+            o[0] * o[0] + o[1] * o[1] + o[2] * o[2])  # ..., o.d, o.o
+    table = segs.reshape(-1, SEG_BLOCK, 12)
+    cols = torch.arange(SEG_BLOCK, device=org.device)
 
-    Returns (t, u, v, sub, entered): t = max_t and sub = -1 where nothing
-    was hit; entered [G] counts the clusters each group entered."""
-    g = org.shape[0] // LANES
-    dev = org.device
-
-    def lanes(x):  # [N] -> [G, 128, 1, 1]
-        return x.reshape(g, LANES, 1, 1)
-
-    ox, oy, oz = (lanes(org[:, k]) for k in range(3))
-    dx, dy, dz = (lanes(direction[:, k]) for k in range(3))
-    mint = lanes(min_t)
-    inv_x, inv_y, inv_z = (_inv(direction[:, k]).reshape(g, LANES)
-                           for k in range(3))
-    od = ox * dx + oy * dy + oz * dz
-    oo = ox * ox + oy * oy + oz * oz
-
-    best_t = max_t.reshape(g, LANES, 1).repeat(1, 1, SLOTS)  # [G, 128, 8]
-    best_u = torch.zeros_like(best_t)
-    best_v = torch.zeros_like(best_t)
-    best_p = torch.full_like(best_t, -1, dtype=torch.int32)
-    entered = torch.zeros((g,), dtype=torch.int32, device=dev)
-    o2 = [org[:, k].reshape(g, LANES) for k in range(3)]
-    mint2 = min_t.reshape(g, LANES)
-    ids = torch.arange(SEG_BLOCK, dtype=torch.int32, device=dev).reshape(
-        STEPS, SLOTS)
-    for c in range(aabb.shape[1]):
-        t0 = [(aabb[k, c] - o2[k]) * inv for k, inv in
-              enumerate((inv_x, inv_y, inv_z))]
-        t1 = [(aabb[k + 3, c] - o2[k]) * inv for k, inv in
-              enumerate((inv_x, inv_y, inv_z))]
-        tnear = torch.maximum(torch.maximum(torch.minimum(t0[0], t1[0]),
-                                            torch.minimum(t0[1], t1[1])),
-                              torch.minimum(t0[2], t1[2]))
-        tfar = torch.minimum(torch.minimum(torch.maximum(t0[0], t1[0]),
-                                           torch.maximum(t0[1], t1[1])),
-                             torch.maximum(t0[2], t1[2]))
-        lane_best = best_t.amin(dim=2)
-        box_hit = ((tnear <= tfar * 1.00000024) & (tfar >= mint2)
-                   & (tnear <= lane_best))
-        do = box_hit.any(dim=1)  # [G]
-        if any_hit:
-            do = do & ~(best_p >= 0).any(dim=2).all(dim=1)
-        entered += do.to(torch.int32)
-        rows = segs[c * SEG_BLOCK:(c + 1) * SEG_BLOCK].reshape(
-            1, 1, STEPS, SLOTS, 12)
-        (p0x, p0y, p0z, ex, ey, ez, r0c, drc, p0e, ee, u0c,
-         duc) = rows.unbind(-1)  # each [1, 1, 16, 8]
+    def visit(ln, c, best):
+        ox, oy, oz, dx, dy, dz, mint, od, oo = (x[ln, None] for x in lane)
+        (p0x, p0y, p0z, ex, ey, ez, r0, dr, p0e, ee, u0,
+         du) = table[c].unbind(-1)  # each [k, 128]
         ad = (p0x * dx + p0y * dy + p0z * dz) - od
         ed = ex * dx + ey * dy + ez * dz
         ae = p0e - (ex * ox + ey * oy + ez * oz)
@@ -194,20 +162,8 @@ def _walk_ref(segs, aabb, org, direction, min_t, max_t, any_hit=False):
         s = torch.clamp(-q / ep2, 0.0, 1.0)
         d2 = (aa - ad * ad) + 2.0 * s * q + s * s * ep2
         t = ad + s * ed
-        rad = r0c + s * drc
-        # candidates against the slot's best from before the cluster
-        prev = best_t[:, :, None, :]
-        hit = ((d2 <= rad * rad) & (t >= mint) & (t < prev) & (rad > 0.0)
-               & do[:, None, None, None])
-        tk, k = torch.where(hit, t, float("inf")).min(dim=2)  # first least
-        better = tk < best_t
-        if not bool(better.any()):
-            continue
-
-        def pick(x):
-            x = x.expand(g, LANES, STEPS, SLOTS)
-            return torch.gather(x, 2, k[:, :, None, :])[:, :, 0, :]
-
+        rad = r0 + s * dr
+        # signed ribbon offset: the triple product -det[p0 - o, d, e]
         cx = dy * ez - dz * ey
         cy = dz * ex - dx * ez
         cz = dx * ey - dy * ex
@@ -216,21 +172,14 @@ def _walk_ref(segs, aabb, org, direction, min_t, max_t, any_hit=False):
                                       min=1e-20))
         voff = torch.clamp(-det / (blen * torch.clamp(rad, min=1e-12)),
                            -1.0, 1.0)
-        best_u = torch.where(better, pick(u0c + s * duc), best_u)
-        best_v = torch.where(better, pick(voff), best_v)
-        best_p = torch.where(better, pick(
-            (ids + c * SEG_BLOCK)[None, None]), best_p)
-        best_t = torch.where(better, tk, best_t)
-    # least t over the slots, the lowest slot on ties (argmin keeps the
-    # first); a slot without a hit still holds max_t, which no hit reaches
-    tmin, slot = best_t.min(dim=2)
-    sel = slot[..., None]
-    sub = torch.gather(best_p, 2, sel)[..., 0]
-    found = sub >= 0
-    u = torch.where(found, torch.gather(best_u, 2, sel)[..., 0], 0.0)
-    v = torch.where(found, torch.gather(best_v, 2, sel)[..., 0], 0.0)
-    return (tmin.reshape(-1), u.reshape(-1), v.reshape(-1), sub.reshape(-1),
-            entered)
+        ok = (d2 <= rad * rad) & (t >= mint) & (rad > 0.0)
+        per_ray.beats_ref(ln, c[:, None] * SEG_BLOCK + cols, t, ok,
+                          u0 + s * du, voff, best)
+
+    return per_ray.cluster_walk(
+        aabb.shape[1], SEG_BLOCK, per_ray.diff_enter(aabb, org,
+                                                     _inv(direction), min_t),
+        visit, min_t, max_t, any_hit=any_hit, counts=counts)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -250,12 +199,7 @@ def _walk_cuda(segs, aabb, org, direction, min_t, max_t, any_hit=False):
     for x, shape in ((org, (n, 3)), (direction, (n, 3)), (min_t, (n,)),
                      (max_t, (n,))):
         check("dense_curve", x, f32, shape, dev)
-    if n % LANES:
-        raise ValueError(f"{n} lanes is not a whole number of {LANES}-lane "
-                         "groups")
-    if segs.data_ptr() % 16:
-        raise ValueError("dense_curve kernel reads the rows as float4: the "
-                         "table must be 16-byte aligned")
+    cuda_lib.check_float4_rows("dense_curve", segs, 12)  # 3 float4 a row
     t = torch.empty((n,), dtype=f32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
@@ -273,33 +217,18 @@ def _walk_cuda(segs, aabb, org, direction, min_t, max_t, any_hit=False):
     return t, u, v, sub
 
 
-def pad_rays(org, direction, min_t, max_t):
-    """Pad the lanes to whole 128-lane groups as the JAX wrapper pads (org
-    0, direction 1, min_t 0, max_t -1 = dead) and clamp max_t to INF."""
-    n = org.shape[0]
-    pad = -n % LANES
-
-    def padded(x, value):
-        if pad:
-            x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]),
-                                         value)])
-        return x.contiguous()
-
-    return (padded(org, 0.0), padded(direction, 1.0), padded(min_t, 0.0),
-            torch.clamp(padded(max_t, -1.0), max=INF))
+def clamped_rays(org, direction, min_t, max_t):
+    """The kernels' ray arrays: contiguous, max_t clamped to INF."""
+    return (org.contiguous(), direction.contiguous(), min_t.contiguous(),
+            torch.clamp(max_t, max=INF))
 
 
 def _trace(segs, aabb, org, direction, min_t, max_t, any_hit, plain):
-    n = org.shape[0]
-    rays = pad_rays(org, direction, min_t, max_t)
-    segs, aabb = segs.contiguous(), aabb.contiguous()
-    if org.is_cuda and not plain:
-        t, u, v, sub = _walk_cuda(segs, aabb, *rays, any_hit=any_hit)
-    else:
-        t, u, v, sub, _ = _walk_ref(segs, aabb, *rays, any_hit=any_hit)
-    hit = sub[:n] >= 0
-    return {"t": torch.where(hit, t[:n], INF), "u": u[:n], "v": v[:n],
-            "sub": sub[:n]}
+    walk = _walk_cuda if org.is_cuda and not plain else _walk_ref
+    t, u, v, sub = walk(segs.contiguous(), aabb.contiguous(),
+                        *clamped_rays(org, direction, min_t, max_t),
+                        any_hit=any_hit)
+    return {"t": torch.where(sub >= 0, t, INF), "u": u, "v": v, "sub": sub}
 
 
 def dense_curve_trace(packed_segs, cluster_aabb, org, direction, min_t,

@@ -32,10 +32,10 @@ import ctypes
 import torch
 
 from . import cuda_lib
-from .dense import SLOP, TRI_BLOCK, finish, slab, tri_test
-from .dense_curve import _inv, pad_rays
+from .dense import (LANES, SLOP, TRI_BLOCK, finish, pad_rays, slab,
+                    tri_test)
+from .dense_curve import _inv
 
-LANES = 128  # rays per group (the TPU lane group; one CUDA block)
 SLOTS = 8  # triangles per step (the TPU's sublanes): one best each
 STEPS = TRI_BLOCK // SLOTS
 

@@ -43,7 +43,7 @@ from ..core.math import INF
 from . import cuda_lib, per_ray
 
 CLUSTER = 32  # triangles per cluster (SAH leaf window)
-MAX_CLUSTERS = 256  # the kernels' per-lane list (csrc/dense_v4.cu)
+MAX_CLUSTERS = per_ray.LIST  # the kernels' per-lane list: one chunk
 
 LAUNCHES = {"single": 0, "dual": 0}
 

@@ -1,7 +1,9 @@
 """Plain torch twins of the per-ray walks of `csrc/per_ray.cuh`: the BVH
 walk, which the dense_v5, dense_v5l and dense_v5i kernels run
-(`walk_ref`), and the cluster walk of the dense_v4 kernels
-(`cluster_walk_ref`).
+(`walk_ref`), and the cluster walk (`cluster_walk`) of the dense_v4
+kernels (`cluster_walk_ref`), the dense_curve kernel and the dense_v3
+kernel (their modules hold the cluster tests; `diff_enter` and
+`beats_ref` are the legacy slab test and tie rule they share).
 
 Every lane walks alone: it has its own stack of (node, entry t) entries
 (`[N, stack]` ids and entry t) and its own pointer. Each step pops one
@@ -25,14 +27,15 @@ lane as the kernel's thread handles it:
   strict `<` keeps. Any-hit ends the lane's walk after the first leaf that
   gives it a hit.
 
-The cluster walk has no tree: each lane slab-tests its ray against every
-cluster box, sorts the clusters it enters by entry t (stable: ties by the
-lower cluster id) and walks them front to back with the same cull and
-leaf test; step j tests the j-th cluster of every lane still walking.
+The cluster walk has no tree: in chunks of LIST clusters in cluster
+order, each lane slab-tests its ray against the chunk's boxes, sorts the
+clusters it enters by entry t (stable: ties by the lower cluster id) and
+walks them front to back with the same cull; step j tests the j-th
+cluster of every lane still walking.
 
-The float operations are the kernel's, in its order, so on the card the
-kernel and this twin agree to the bit. Both twins optionally count, per
-lane, the ray-triangle tests, ray-box tests and instance transforms they
+The float operations are the kernels', in their order, so on the card a
+kernel and its twin agree to the bit. The twins optionally count, per
+lane, the primitive tests, ray-box tests and instance transforms they
 did.
 """
 from __future__ import annotations
@@ -40,6 +43,7 @@ from __future__ import annotations
 import torch
 
 CLUSTER = 32  # triangles per leaf
+LIST = 256  # clusters in a lane's list (per_ray.cuh kList): one chunk
 _BIG = 1e30
 
 
@@ -242,43 +246,118 @@ def walk_ref(rows, node_aabb, node_meta, org, direction, min_t, max_t,
     return (*out, work) if counts else out
 
 
-def cluster_walk_ref(tris, cluster_aabb, org, direction, min_t, max_t,
-                     any_hit=False, counts=False):
-    """Each lane's walk of the clusters its ray enters, the dense_v4
-    kernels' `per_ray::cluster_walk`: the slab test against every box
-    (rows 0:6 of cluster_aabb [>= 6, M]) capped at max_t, the clusters
-    entered in order of entry t (stable: ties by the lower cluster id),
-    then front to back the 32 triangles of cluster c (slots 32 c + k of
-    the attr-major table tris [12, 32 M]) until `tn (1 - 1e-6) - 1e-6 >
-    best t`, with any_hit until the first cluster that gives a hit.
-    Returns (t, u, v, prim) and, with counts, [N, 3] int64 per lane:
-    ray-triangle tests, ray-box tests (M per live lane), 0. t = max_t
-    where nothing was hit; a lane with max_t < min_t tests nothing."""
-    n = org.shape[0]
-    dev = org.device
-    f = _frame(org, direction)
-    live = max_t >= min_t
-    tn = _enter(cluster_aabb[:6, None, :], f.T[:, :, None], min_t[:, None],
-                max_t[:, None])  # [n, M]
-    key, order = torch.sort(torch.where(live[:, None], tn, _BIG), dim=1,
-                            stable=True)
-    cnt = (key < _BIG).sum(dim=1)
+def cluster_walk(m, size, enter, visit, min_t, max_t, any_hit=False,
+                 counts=False):
+    """Each lane's walk of m clusters, `per_ray::cluster_walk`: in chunks of
+    LIST clusters in cluster order, the lane's entry t into each box of the
+    chunk, `enter(c0, c1, cap)` -> [N, c1 - c0] (1e30 where the ray does
+    not enter before cap [N], the lane's best t so far), sorted (stable:
+    ties by the lower cluster id); then front to back `visit(ln, c, best)`
+    tests cluster c [k] for lanes ln [k] (`size` primitives, updating best
+    = (t, u, v, prim) [N] in place) until `tn (1 - 1e-6) - 1e-6 > best
+    t`; then the next chunk. With any_hit a lane's walk ends after the
+    first cluster that gives it a hit. Step j of a chunk tests the j-th
+    cluster of every lane still walking. Returns (t, u, v, prim) and, with
+    counts, [N, 3] int64 per lane: primitive tests, box tests, 0. t =
+    max_t where nothing was hit; a lane with max_t < min_t tests nothing."""
+    n = max_t.shape[0]
+    dev = max_t.device
     best = (max_t.clone(), torch.zeros_like(max_t), torch.zeros_like(max_t),
             torch.full((n,), -1, dtype=torch.int32, device=dev))
-    done = torch.zeros((n,), dtype=torch.bool, device=dev)
+    done = ~(max_t >= min_t)  # a dead lane tests nothing
     work = torch.zeros((n, 3), dtype=torch.int64, device=dev)
-    work[:, 1] = live * cluster_aabb.shape[1]
-    rows = attr_major_rows(tris)
-    for j in range(int(cnt.max()) if n else 0):
-        # the lane's own cull: later clusters enter no earlier
-        ln = torch.nonzero((j < cnt) & ~done & (
-            key[:, j] * (1.0 - 1e-6) - 1e-6 <= best[0])).squeeze(1)
-        if ln.numel() == 0:
+    for c0 in range(0, m, LIST):
+        if bool(done.all()):
             break
-        base = order[ln, j] * CLUSTER
-        leaf_ref(rows, ln, base, base, f[ln], min_t[ln], best)
+        c1 = min(c0 + LIST, m)
+        key, order = torch.sort(torch.where(done[:, None], _BIG,
+                                            enter(c0, c1, best[0])),
+                                dim=1, stable=True)
+        cnt = (key < _BIG).sum(dim=1)
         if counts:
-            work[ln, 0] += CLUSTER
-        if any_hit:  # the walk ends after the first cluster with a hit
-            done = best[3] >= 0
+            work[:, 1] += (~done) * (c1 - c0)
+        for j in range(int(cnt.max())):
+            # the lane's own cull: later clusters enter no earlier
+            ln = torch.nonzero((j < cnt) & ~done & (
+                key[:, j] * (1.0 - 1e-6) - 1e-6 <= best[0])).squeeze(1)
+            if ln.numel() == 0:
+                break
+            visit(ln, order[ln, j] + c0, best)
+            if counts:
+                work[ln, 0] += size
+            if any_hit:  # the walk ends after the first cluster with a hit
+                done = done | (best[3] >= 0)
     return (*best, work) if counts else best
+
+
+def cluster_walk_ref(tris, cluster_aabb, org, direction, min_t, max_t,
+                     any_hit=False, counts=False):
+    """The dense_v4 kernels' walk (`cluster_walk` with M <= LIST: one
+    chunk): the slab test of `per_ray::slab` against every box (rows 0:6 of
+    cluster_aabb [>= 6, M]) capped at max_t, then the 32 triangles of
+    cluster c (slots 32 c + k of the attr-major table tris [12, 32 M])
+    with `leaf_ref`. Returns as `cluster_walk` (ray-triangle tests, M
+    ray-box tests per live lane)."""
+    f = _frame(org, direction)
+    rows = attr_major_rows(tris)
+
+    def enter(c0, c1, cap):
+        return _enter(cluster_aabb[:6, None, c0:c1], f.T[:, :, None],
+                      min_t[:, None], cap[:, None])
+
+    def visit(ln, c, best):
+        base = c * CLUSTER
+        leaf_ref(rows, ln, base, base, f[ln], min_t[ln], best)
+
+    return cluster_walk(cluster_aabb.shape[1], CLUSTER, enter, visit, min_t,
+                        max_t, any_hit=any_hit, counts=counts)
+
+
+def diff_enter(aabb, org, inv, min_t):
+    """`enter` of `cluster_walk` for the legacy dense kernels' slab test
+    (`per_ray::slab_diff`: dense_curve, dense_v3): the entry t of each
+    lane's ray (org [N, 3], inv the Pallas bodies' 1 / direction [N, 3])
+    into boxes c0..c1 - 1 of aabb [>= 6, M] in the `(box - o) * inv` form,
+    where `tnear <= tfar (1 + 2.4e-7)`, `tfar >= min_t` and `tnear <=
+    cap`; else 1e30."""
+    o = [org[:, k:k + 1] for k in range(3)]
+    iv = [inv[:, k:k + 1] for k in range(3)]
+    mint = min_t[:, None]
+
+    def enter(c0, c1, cap):
+        box = aabb[:6, c0:c1]
+        t0 = [(box[k] - o[k]) * iv[k] for k in range(3)]
+        t1 = [(box[k + 3] - o[k]) * iv[k] for k in range(3)]
+        tnear = torch.maximum(torch.maximum(torch.minimum(t0[0], t1[0]),
+                                            torch.minimum(t0[1], t1[1])),
+                              torch.minimum(t0[2], t1[2]))
+        tfar = torch.minimum(torch.minimum(torch.maximum(t0[0], t1[0]),
+                                           torch.maximum(t0[1], t1[1])),
+                             torch.maximum(t0[2], t1[2]))
+        ok = ((tnear <= tfar * 1.00000024) & (tfar >= mint)
+              & (tnear <= cap[:, None]))
+        return torch.where(ok, tnear, _BIG)
+    return enter
+
+
+def beats_ref(ln, ids, t, ok, u, v, best):
+    """Lanes ln [k] against a block of candidates [k, B] (prim ids, t,
+    validity up to the bound on t, u, v) in order, with the rule of
+    `per_ray::beats`: a valid candidate wins when its t is below the
+    lane's best t, or equal to it with a lower slot (id mod 8). So each
+    lane keeps the lexicographic minimum of (t, id mod 8), the first
+    visited on a full tie. best = (t, u, v, prim) [N], updated in place."""
+    best_t, best_u, best_v, best_p = best
+    bt, bp = best_t[ln], best_p[ln]
+    ok = ok & ((t < bt[:, None]) | ((t == bt[:, None]) & (bp >= 0)[:, None]))
+    tk = torch.where(ok, t, float("inf")).amin(dim=1)
+    width = t.shape[1]
+    # among the least t: the lowest slot, then the first visited
+    rank = (ids & 7) * width + torch.arange(width, device=t.device)
+    key = torch.where(ok & (t == tk[:, None]), rank, 8 * width).amin(dim=1)
+    better = (key < 8 * width) & ((tk < bt) | (key // width < (bp & 7)))
+    w, kw = ln[better], (key % width)[better][:, None]
+    best_t[w] = tk[better]
+    best_u[w] = torch.gather(u[better], 1, kw)[:, 0]
+    best_v[w] = torch.gather(v[better], 1, kw)[:, 0]
+    best_p[w] = torch.gather(ids[better], 1, kw)[:, 0].to(torch.int32)

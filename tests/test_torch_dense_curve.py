@@ -3,34 +3,48 @@
 Tables: `pack_segments` and the commit's curve tables are numpy on both
 sides and must be equal exactly.
 
-Trace: on the CPU the port's wrapper runs the plain torch walk; the
-reference is pbrlab_tpu.ops.pallas.dense_curve in interpret mode, on the
-hair golden scene (tests/test_goldens.py:43-47) with rays aimed through
-the tuft, plus dead lanes and clipped max_t. Both compute the same float32
-ops, but XLA:CPU may contract a product and a sum into one rounding, and
-the ribbon test's d2 = (aa - ad^2) + 2sq + s^2 ep2 cancels terms of
-~|p0 - o|^2 ~ 10 down to r^2 ~ 1.6e-5. So a lane may hit on one side and
-miss on the other where |d2 - r^2| lies within GRAZE_ULPS ulps of
-max(aa, ad^2) for the segment either side picked (recomputed here in
-float32 with numpy, which does not contract). Everywhere else hit masks
-and sub must be equal, and the grazing lanes must stay under 1% of all
-lanes (measured: 11-18 of 3000 over five seeds). Where both pick the same
-segment t agrees to rtol 1e-5; u and v inherit cancellations of their own
-(s = -q/ep2 with q = ae - ad*ed; the triple product det over r ~ 0.004),
-which the contraction moves by up to 7.6e-6 in u and 5.3e-5 in v
-(measured, same seeds): u is held to atol 2e-5, v to atol 1e-4.
+Trace: on the CPU the port's wrapper runs the per-ray twin (`_walk_ref`:
+each lane walks the clusters its own ray enters, in the order of its own
+entry t, until its own best t); the reference is
+pbrlab_tpu.ops.pallas.dense_curve in interpret mode, a group walk (a
+128-lane group enters a cluster when any lane's box test passes, and
+every lane tests its 128 ribbons), on the hair golden scene
+(tests/test_goldens.py:43-47) with rays aimed through the tuft, plus dead
+lanes and clipped max_t. Both compute the same float32 ops, but XLA:CPU
+may contract a product and a sum into one rounding, and the ribbon
+test's d2 = (aa - ad^2) + 2sq + s^2 ep2 cancels terms of ~|p0 - o|^2 ~ 10
+down to r^2 ~ 1.6e-5. So a lane may hit on one side and miss on the
+other where |d2 - r^2| lies within GRAZE_ULPS ulps of max(aa, ad^2) for
+the segment either side picked (recomputed here in float32 with numpy,
+which does not contract). Everywhere else hit masks and sub must be
+equal, and the grazing lanes must stay under 1% of all lanes. Where both
+pick the same segment t agrees to rtol 1e-5; u and v inherit
+cancellations of their own (s = -q/ep2 with q = ae - ad*ed; the triple
+product det over r ~ 0.004), which the contraction moves by up to 7.6e-6
+in u and 5.3e-5 in v: u is held to atol 2e-5, v to atol 1e-4. Measured
+with the per-ray twin (CPU, the tests' seeds): closest, 3000 lanes, 436
+JAX hits, sub differs on 11 lanes (the hit mask on 5 of them), all
+grazing; t bit-equal on 290 of the 426 hit lanes that agree, relative
+<= 2.9e-7; any-hit masks differ on 8 grazing lanes of 3000.
 
-The requires_cuda test compares the CUDA kernel with the plain walk on the
-card: same ops, no FMA contraction, IEEE division and sqrt -> equal bits.
-It imports no JAX, so it runs there with `python -m pytest
-tests/test_torch_dense_curve.py --noconftest -o addopts="" -m requires_cuda`.
+The twin is also held against an independent per-lane numpy loop
+(`NumpyChunkWalk`: the chunks, the box test, the stable order, the lane's
+own exit and the (t, id mod 8) rule, written from the kernel's rules) on
+48 lanes of the tuft and on a synthetic scene of 300 clusters, more than
+a lane's list of 256, so the walk goes through two chunks.
+
+The requires_cuda tests compare the CUDA kernel with the twin on the
+card: the same walk, the same ops, no FMA contraction, IEEE division and
+sqrt -> equal bits. They import no JAX, so they run there with `python
+-m pytest tests/test_torch_dense_curve.py --noconftest -o addopts="" -m
+requires_cuda`.
 """
 import numpy as np
 import pytest
 import torch
 
 from pbrlab_tpu_torch.core.math import INF
-from pbrlab_tpu_torch.ops import dense_curve
+from pbrlab_tpu_torch.ops import dense_curve, per_ray
 from pbrlab_tpu_torch.ops.curves import flatten_curves, subsegment_bounds
 from pbrlab_tpu_torch.scene.demo import build_demo_scene
 from pbrlab_tpu_torch.scene.scene import scene_from_numpy
@@ -39,6 +53,9 @@ from torch_threads import one_torch_thread  # noqa: F401
 HAIR = dict(subdiv=1, with_monkey=False, with_lucy=False, with_hair=True)
 N = 3000  # not a multiple of the 128-lane group: exercises the padding
 GRAZE_ULPS = 16
+F = np.float32
+BIG = F(1e30)
+CHUNK_M = 300  # clusters of the synthetic scene: more than one list
 CURVE_KEYS = ("curve_pts", "curve_material", "curve_instance", "curve_p0",
               "curve_p1", "curve_r0", "curve_r1", "curve_seg", "curve_u0",
               "curve_u1", "dense_segs", "dense_seg_aabb", "curve_sub_fat")
@@ -170,9 +187,9 @@ def test_trace_matches_jax(scene_np, any_hit):
     assert (got["t"][ghit] < rays[3][ghit]).all()
 
 
-def test_any_hit_stops_groups_early(scene_np):
+def test_any_hit_stops_lanes_early(scene_np):
     """Rays aimed at sub-segment midpoints from all around, no dead lane:
-    whole groups find hits, so the any-hit walk stops early; it still
+    every lane finds a hit, so its any-hit walk stops early; it still
     reports a hit wherever the closest query does, as JAX does."""
     rng = np.random.default_rng(8)
     n = 1024
@@ -192,12 +209,14 @@ def test_any_hit_stops_groups_early(scene_np):
     assert hit.all()
     np.testing.assert_array_equal(hit, want["sub"] >= 0)
     assert torch.equal(closest["sub"] >= 0, anyh["sub"] >= 0)
-    # the groups entered fewer clusters: the walk stopped early
-    padded = dense_curve.pad_rays(*args[2:])
-    entered = [int(dense_curve._walk_ref(*args[:2], *padded,
-                                         any_hit=a)[4].sum())
-               for a in (False, True)]
-    assert entered[1] < entered[0]
+    # the twin's own counts: up to its first hit a lane's any-hit walk is
+    # its closest walk, so it tests no more ribbons and boxes, and in all
+    # fewer ribbons: the walks stopped early
+    clamped = dense_curve.clamped_rays(*args[2:])
+    work = [dense_curve._walk_ref(*args[:2], *clamped, any_hit=a,
+                                  counts=True)[4] for a in (False, True)]
+    assert (work[1] <= work[0]).all()
+    assert int(work[1][:, 0].sum()) < int(work[0][:, 0].sum())
 
 
 def _tie_table(ids):
@@ -253,12 +272,222 @@ def test_wrapper_takes_plain_walk_on_cpu(scene_np):
     assert dense_curve.LAUNCHES == before
 
 
-@pytest.mark.requires_cuda
-def test_cuda_kernel_matches_plain(scene_np):
-    """Kernel vs plain walk on the card: equal bits, closest and any-hit."""
+class NumpyChunkWalk:
+    """Each lane on its own, in numpy float32, written from the kernels'
+    walk (`per_ray::cluster_walk` with the legacy box test): in chunks of
+    LIST clusters in cluster order, the `(box - o) * inv` slab test of
+    every box of the chunk (inv: a |d| < 1e-12 component as +1e-12)
+    capped at the lane's best t, the entered clusters sorted by entry t
+    (Python's stable sort: ties by the lower id), then each cluster's
+    primitives in order, a valid one taken when its t is smaller, or
+    equal with a lower id mod 8, until `tn (1 - 1e-6) - 1e-6 > best t`;
+    any-hit stops after the first cluster with a hit. `test(c, o, d,
+    mint)` gives cluster c's (t, u, v, valid) [size] in the kernel's
+    operations (subclasses)."""
+
+    size = dense_curve.SEG_BLOCK
+
+    def __init__(self, aabb):
+        self.lo = np.ascontiguousarray(aabb[0:3].T, F)
+        self.hi = np.ascontiguousarray(aabb[3:6].T, F)
+        self.m = aabb.shape[1]
+
+    def slab(self, c, o, inv, mint, cap):
+        t0 = (self.lo[c] - o) * inv
+        t1 = (self.hi[c] - o) * inv
+        near, far = np.minimum(t0, t1), np.maximum(t0, t1)
+        tnear = np.maximum(np.maximum(near[0], near[1]), near[2])
+        tfar = np.minimum(np.minimum(far[0], far[1]), far[2])
+        if tnear <= tfar * F(1.00000024) and tfar >= mint and tnear <= cap:
+            return tnear
+        return BIG
+
+    def visit(self, c, o, d, s):
+        t, u, v, ok = self.test(c, o, d, s["mint"])
+        s["prims"] += self.size
+        for k in np.flatnonzero(ok):
+            i = c * self.size + k
+            if t[k] < s["t"] or (t[k] == s["t"] and s["prim"] >= 0
+                                 and i % 8 < s["prim"] % 8):
+                s.update(t=t[k], u=u[k], v=v[k], prim=i)
+
+    def walk(self, org, direction, min_t, max_t, any_hit=False):
+        """Per lane: t, u, v, prim, the counts [n, 3] (primitive and box
+        tests, 0) and the number of clusters entered."""
+        out = {k: [] for k in ("t", "u", "v", "prim", "work", "entered")}
+        for o, d, mint, maxt in zip(org, direction, min_t, max_t):
+            inv = F(1) / np.where(np.abs(d) < F(1e-12), F(1e-12), d)
+            s = dict(t=maxt, u=F(0), v=F(0), prim=-1, mint=mint, prims=0,
+                     boxes=0, entered=0)
+            for c0 in range(0, self.m if maxt >= mint else 0, per_ray.LIST):
+                c1 = min(c0 + per_ray.LIST, self.m)
+                s["boxes"] += c1 - c0
+                entries = [(tn, c) for c in range(c0, c1)
+                           if (tn := self.slab(c, o, inv, mint,
+                                               s["t"])) < BIG]
+                entries.sort(key=lambda e: e[0])
+                s["entered"] += len(entries)
+                for tn, c in entries:
+                    if not tn * F(0.999999) - F(1e-6) <= s["t"]:
+                        break
+                    self.visit(c, o, d, s)
+                    if any_hit and s["prim"] >= 0:
+                        break
+                if any_hit and s["prim"] >= 0:
+                    break
+            for k in ("t", "u", "v", "prim", "entered"):
+                out[k].append(s[k])
+            out["work"].append((s["prims"], s["boxes"], 0))
+        return {k: np.asarray(v) for k, v in out.items()}
+
+
+class NumpyCurveWalk(NumpyChunkWalk):
+    """NumpyChunkWalk over a dense_curve table: the Pallas body's ribbon
+    test, every product and sum rounded on its own, in its order."""
+
+    def __init__(self, segs, aabb):
+        super().__init__(aabb)
+        self.segs = segs
+
+    def test(self, c, o, d, mint):
+        r = self.segs[c * self.size:(c + 1) * self.size].T
+
+        def dot(x, y):  # x rows, y a 3-vector
+            return (x[0] * y[0] + x[1] * y[1]) + x[2] * y[2]
+
+        p0, e = r[0:3], r[3:6]
+        ad = dot(p0, d) - dot(o, d)
+        ed = dot(e, d)
+        ae = r[8] - dot(e, o)
+        aa = (dot(p0, p0) - F(2) * dot(p0, o)) + dot(o, o)
+        with np.errstate(all="ignore"):
+            ep2 = np.maximum(r[9] - ed * ed, F(1e-12))
+            q = ae - ad * ed
+            s = np.clip(-q / ep2, F(0), F(1))
+            d2 = ((aa - ad * ad) + (F(2) * s) * q) + (s * s) * ep2
+            t = ad + s * ed
+            rad = r[6] + s * r[7]
+            cx = d[1] * e[2] - d[2] * e[1]
+            cy = d[2] * e[0] - d[0] * e[2]
+            cz = d[0] * e[1] - d[1] * e[0]
+            det = ((p0[0] - o[0]) * cx + (p0[1] - o[1]) * cy) \
+                + (p0[2] - o[2]) * cz
+            blen = np.sqrt(np.maximum((cx * cx + cy * cy) + cz * cz,
+                                      F(1e-20)))
+            v = np.clip(-det / (blen * np.maximum(rad, F(1e-12))), F(-1),
+                        F(1))
+        ok = (d2 <= rad * rad) & (t >= mint) & (rad > 0)
+        return t, r[10] + s * r[11], v, ok
+
+
+def _check_numpy(twin, want):
+    """Twin (t, u, v, sub, counts) against the numpy walk: every output
+    and count equal."""
+    for got, key in zip(twin, ("t", "u", "v", "prim", "work")):
+        np.testing.assert_array_equal(got.numpy(), want[key], err_msg=key)
+
+
+def chunk_segs(m=CHUNK_M):
+    """m clusters along +x, cluster c's box x in [3 (m - 1 - c), +1], y in
+    [-1.3, 1.3], z in [-1, 1] (the highest id nearest the origin), each
+    with one ribbon across the x axis in row 128 c + (5 c mod 128): p0 =
+    (x + 0.5, -0.9, 0), e = (0, 1.8, 0), radius 0.3. A ray along +x from x
+    = -10 enters every box, those of the second chunk (ids 256 and up)
+    first; a ray along -x from beyond the far end enters the first
+    chunk's first."""
+    segs = np.zeros((m * dense_curve.SEG_BLOCK, 12), F)
+    aabb = np.zeros((8, m), F)
+    for c in range(m):
+        x = 3.0 * (m - 1 - c)
+        aabb[:3, c] = (x, -1.3, -1.0)
+        aabb[3:6, c] = (x + 1.0, 1.3, 1.0)
+        p0, e = np.array([x + 0.5, -0.9, 0.0], F), np.array([0, 1.8, 0], F)
+        segs[c * dense_curve.SEG_BLOCK + 5 * c % 128] = (
+            *p0, *e, 0.3, 0.0, p0 @ e, e @ e, 0.0, 1.0)
+    return segs, aabb
+
+
+def chunk_rays(n, m=CHUNK_M, seed=23):
+    """Lanes along +x from x = -10 (half), along -x from x = 3 m + 10 (a
+    quarter) and in random directions from the middle (a quarter, most of
+    them missing), every 7th dead, every 5th (from the 4th) clipped."""
+    rng = np.random.default_rng(seed)
+    org = np.zeros((n, 3), F)
+    d = np.zeros((n, 3), F)
+    half, rest = n // 2, n - n // 2 - n // 4
+    org[:half, 0], d[:half, 0] = -10.0, 1.0
+    org[half:n - rest, 0], d[half:n - rest, 0] = 3.0 * m + 10.0, -1.0
+    org[:n - rest, 1:] = rng.uniform(-0.15, 0.15, (n - rest, 2))
+    d[:n - rest, 1:] = rng.uniform(-1e-4, 1e-4, (n - rest, 2))
+    org[n - rest:] = (1.5 * m, 0.0, 0.0)
+    rd = rng.normal(size=(rest, 3))
+    d[n - rest:] = rd / np.linalg.norm(rd, axis=1, keepdims=True)
+    max_t = np.full(n, INF, F)
+    max_t[3::5] = rng.uniform(0.0, 3.0 * m, len(max_t[3::5]))
+    max_t[::7] = -1.0
+    return org, d / np.linalg.norm(d, axis=1, keepdims=True).astype(F), \
+        np.full(n, 1e-3, F), max_t
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_twin_matches_numpy_walk(scene_np, any_hit):
+    """48 lanes of the JAX test's rays through the demo tuft (42 clusters,
+    dead and clipped lanes among them)."""
+    rays = _rays(scene_np, 48, 21)
+    want = NumpyCurveWalk(scene_np["dense_segs"],
+                          scene_np["dense_seg_aabb"]).walk(*rays, any_hit)
+    args = _torch_args(scene_np, rays)
+    got = dense_curve._walk_ref(*args[:2], *dense_curve.clamped_rays(
+        *args[2:]), any_hit=any_hit, counts=True)
+    _check_numpy(got, want)
+    hit = want["prim"] >= 0
+    assert hit.mean() > 0.1 and not hit[::7].any()  # dead lanes
+    # the lanes' own cull: no lane walks more clusters than it enters,
+    # and some stop before the end of their lists
+    walked = want["work"][:, 0] // dense_curve.SEG_BLOCK
+    assert (walked <= want["entered"]).all()
+    assert (walked < want["entered"]).any()
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_twin_walks_chunks(any_hit):
+    """The synthetic scene of CHUNK_M clusters: a lane's walk goes through
+    two chunks of the list, and the chunk order decides the answer (the
+    +x lanes' closest hit lies in the second chunk, their any-hit in the
+    first)."""
+    segs, aabb = chunk_segs()
+    rays = chunk_rays(40)
+    want = NumpyCurveWalk(segs, aabb).walk(*rays, any_hit)
+    got = dense_curve._walk_ref(torch.from_numpy(segs),
+                                torch.from_numpy(aabb),
+                                *(torch.from_numpy(r) for r in rays),
+                                any_hit=any_hit, counts=True)
+    _check_numpy(got, want)
+    plus = np.arange(40) < 20
+    live = rays[3] == INF
+    if any_hit:  # the +x lanes stop in the first chunk
+        assert (want["work"][plus & live, 1] == per_ray.LIST).all()
+    else:
+        assert (want["entered"] > per_ray.LIST).any()
+    first = 128 * (CHUNK_M - 1) + 5 * (CHUNK_M - 1) % 128  # nearest +x
+    chunk0 = 128 * 255 + 5 * 255 % 128  # nearest +x in the first chunk
+    np.testing.assert_array_equal(want["prim"][plus & live],
+                                  chunk0 if any_hit else first)
+    minus = (np.arange(40) >= 20) & (np.arange(40) < 30)
+    assert (want["prim"][minus & live] == 0).all()  # cluster 0's ribbon
+
+
+def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the dense_curve kernel is "
                     "CUDA-only)")
+
+
+@pytest.mark.requires_cuda
+def test_cuda_kernel_matches_plain(scene_np):
+    """Kernel vs twin on the card: t, u, v, sub bit-equal, closest and
+    any-hit, one launch a call; a table of the wrong shape raises."""
+    _need_cuda()
     for n, seed in ((N, 5), (65536, 6)):
         args = _torch_args(scene_np, _rays(scene_np, n, seed), "cuda")
         for any_hit in (False, True):
@@ -271,4 +500,22 @@ def test_cuda_kernel_matches_plain(scene_np):
             for k in got:
                 assert torch.equal(got[k], ref[k]), (n, any_hit, k)
     with pytest.raises(ValueError):
-        dense_curve._walk_cuda(args[0], args[1], *(a[:100] for a in args[2:]))
+        dense_curve._walk_cuda(args[0][:-1], *args[1:])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_cuda_kernel_walks_chunks(any_hit):
+    """Kernel vs twin on the synthetic scene of CHUNK_M clusters (two
+    chunks of a lane's list), 2048 lanes: every output bit-equal."""
+    _need_cuda()
+    segs, aabb = (torch.from_numpy(x).cuda() for x in chunk_segs())
+    rays = [torch.from_numpy(r).cuda() for r in chunk_rays(2048)]
+    got = dense_curve._walk_cuda(segs, aabb, *dense_curve.clamped_rays(
+        *rays), any_hit=any_hit)
+    ref = dense_curve._walk_ref(segs, aabb, *dense_curve.clamped_rays(
+        *rays), any_hit=any_hit)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert bool((ref[3] >= 0).any())

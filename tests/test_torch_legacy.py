@@ -12,6 +12,20 @@ interpret-mode program is 32 times smaller (compile ~2.5 s, not ~50 s;
 the 500-ray results are bit-equal either way, CPU measurement). Its own
 jitted function and cache are untouched.
 
+v1 and v2 keep the TPU's group walks. v3 walks per ray (its twin: each
+lane walks the clusters its own ray enters, in the order of its own
+entry t, until its own best t), where the TPU's v3 walks a group's
+survivor list behind a beam cull; so on rays that graze a cluster box,
+and on full ties, v3 may differ from JAX (ROADMAP C3), within the band
+below, and its `cull` argument no longer changes the answer. Measured
+(CPU, 500 rays, either cull): closest, hit masks and prim equal to JAX's
+on all 190 hit lanes, t bit-equal on 178 (relative <= 3.5e-6, XLA:CPU's
+contractions, below); any-hit masks equal.
+The v3 twin is also held against an independent per-lane numpy loop
+(test_torch_dense_curve.py's `NumpyChunkWalk` with the legacy triangle
+test), also on a synthetic scene of more clusters than a lane's list
+holds.
+
 Band (CPU measurement): the plain versions compute the Pallas bodies'
 float32 linear forms in the same order, each product and sum rounded on
 its own: t equals a numpy float32 evaluation of the winning triangle to
@@ -23,7 +37,7 @@ lanes (measured 0 of 500; allowed 1%), t within rtol 1e-6 on >= 98% of
 hits and rtol 1e-5 on all, u and v within atol 1e-5, prim equal where t
 is unique (measured: equal everywhere).
 
-The requires_cuda test compares the CUDA kernels with the plain versions
+The requires_cuda tests compare the CUDA kernels with the plain versions
 on the card. This file imports JAX only inside tests and fixtures, so
 that test runs there with `python -m pytest tests/test_torch_legacy.py
 --noconftest -o addopts="" -m requires_cuda`.
@@ -35,10 +49,14 @@ import pytest
 import torch
 
 from pbrlab_tpu_torch.core.math import INF
-from pbrlab_tpu_torch.ops import dense, dense_v2, dense_v3
+from pbrlab_tpu_torch.ops import (dense, dense_curve, dense_v2, dense_v3,
+                                  per_ray)
+from pbrlab_tpu_torch.ops.dense_curve import _inv
 from pbrlab_tpu_torch.ops.intersect import _closest, trace_scene_dual
 from pbrlab_tpu_torch.scene.demo import build_demo_scene
 from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+from test_torch_dense_curve import (CHUNK_M, F, NumpyChunkWalk, chunk_rays,
+                                    chunk_segs)
 from torch_threads import one_torch_thread  # noqa: F401
 
 N = 500  # not a multiple of the 128-ray group: exercises the padding
@@ -245,32 +263,110 @@ def test_pack_triangles_matches_jax():
 
 
 def test_cull_matches_jax():
-    """cluster_mask, group_survivors_beam (mask and tnear) and
-    signature_key equal JAX's on the subdiv=3 scene (21 clusters, 1024
-    rays: no Pallas, plain XLA), and the beam cull is conservative: every
-    group the per-ray mask passes, it passes."""
+    """The v3 walk's box test (`per_ray.diff_enter`, capped at max_t)
+    passes exactly where JAX's per-ray `cluster_mask` does, on the subdiv=3
+    scene (21 clusters, 1024 rays: no Pallas, plain XLA); its entry t is
+    the one JAX's slab gives, and JAX's group beam cull (the TPU kernel's
+    prelude) passes every group the per-ray test passes: the per-ray walk
+    culls no more than the test JAX builds its cull from."""
     import jax.numpy as jnp
     from pbrlab_tpu.ops.pallas import dense_v3 as jv3
 
     scene_np = build_demo_scene(subdiv=3)[0]
     rays = _rays(scene_np, 1024, 3)
     aabb = scene_np["dense_cluster_aabb"]
-    targs = (torch.from_numpy(aabb), *map(torch.from_numpy, rays))
+    org, d, mn, mx = map(torch.from_numpy, rays)
+    tn = per_ray.diff_enter(torch.from_numpy(aabb), org, _inv(d), mn)(
+        0, aabb.shape[1], mx)
+    live = (mx >= mn)[:, None]
+    enters = ((tn < 1e30) & live).numpy()
     jargs = (jnp.asarray(aabb), *map(jnp.asarray, rays))
-    mask = dense_v3.cluster_mask(*targs)
-    np.testing.assert_array_equal(mask.numpy(),
+    np.testing.assert_array_equal(enters,
                                   np.asarray(jv3.cluster_mask(*jargs)))
-    gm, tn = dense_v3.group_survivors_beam(*targs, return_tnear=True)
-    jgm, jtn = jv3.group_survivors_beam(*jargs, return_tnear=True)
-    np.testing.assert_array_equal(gm.numpy(), np.asarray(jgm))
-    np.testing.assert_array_equal(tn.numpy(), np.asarray(jtn))
-    exact = mask.reshape(8, 128, -1).any(dim=1)
-    assert bool((gm | ~exact).all())
-    assert int(gm.sum()) > int(exact.sum()) > 0
-    key = dense_v3.signature_key(*targs)
-    np.testing.assert_array_equal(
-        key.numpy(), np.asarray(jv3.signature_key(*jargs)).astype(np.int64))
-    assert len(np.unique(key.numpy())) > 10
+    assert 0.05 < enters.mean() < 0.9
+    o, i = rays[0], 1.0 / np.where(np.abs(rays[1]) < 1e-12, 1e-12, rays[1])
+    t0 = (aabb[None, 0:3] - o[:, :, None]) * i[:, :, None]
+    t1 = (aabb[None, 3:6] - o[:, :, None]) * i[:, :, None]
+    tnear = np.minimum(t0, t1).max(axis=1)  # numpy float32, no contraction
+    np.testing.assert_array_equal(tn.numpy()[enters], tnear[enters])
+    gm = np.asarray(jv3.group_survivors_beam(*jargs))
+    exact = enters.reshape(8, 128, -1).any(axis=1)
+    assert (gm | ~exact).all() and gm.sum() > exact.sum() > 0
+
+
+class NumpyV3Walk(NumpyChunkWalk):
+    """NumpyChunkWalk (test_torch_dense_curve.py: chunks, the legacy box
+    test, stable order, the lane's own exit, the (t, id mod 8) rule) over
+    the v1 tables: the Pallas body's ray-triangle test on the linear
+    forms, every product and sum rounded on its own, in its order."""
+
+    def __init__(self, tris, aabb):
+        super().__init__(aabb)
+        self.tris = tris
+
+    def test(self, c, o, d, mint):
+        (nx, ny, nz, k0, b1x, b1y, b1z, c1, b2x, b2y, b2z,
+         c2) = self.tris[:, c * self.size:(c + 1) * self.size]
+        with np.errstate(all="ignore"):
+            den = (d[0] * nx + d[1] * ny) + d[2] * nz
+            num = k0 - ((o[0] * nx + o[1] * ny) + o[2] * nz)
+            t = num / np.where(np.abs(den) < F(1e-12), F(1e-12), den)
+            u = (((o[0] * b1x + o[1] * b1y) + o[2] * b1z) - c1) \
+                + t * ((d[0] * b1x + d[1] * b1y) + d[2] * b1z)
+            v = (((o[0] * b2x + o[1] * b2y) + o[2] * b2z) - c2) \
+                + t * ((d[0] * b2x + d[1] * b2y) + d[2] * b2z)
+        ok = ((np.abs(den) > F(1e-12)) & (u >= 0) & (v >= 0) & (u + v <= 1)
+              & (t >= mint))
+        return t, u, v, ok
+
+
+def chunk_tris():
+    """The legacy tables of test_torch_dense_curve.py's `chunk_segs`
+    scene: the same CHUNK_M boxes, each cluster's one triangle facing -x
+    across the x axis (y, z in [-0.5, 1], x at the box's middle) in
+    column 128 c + (5 c mod 128)."""
+    from pbrlab_tpu_torch.ops.dense import pack_triangles
+
+    _, aabb = chunk_segs()
+    tris = np.zeros((12, 128 * CHUNK_M), F)
+    for c in range(CHUNK_M):
+        x = 3.0 * (CHUNK_M - 1 - c) + 0.5
+        col, _, _ = pack_triangles(np.array([[x, -0.5, -0.5]], F),
+                                   np.array([[0.0, 0.0, 1.5]], F),
+                                   np.array([[0.0, 1.5, 0.0]], F))
+        tris[:, 128 * c + 5 * c % 128] = col[:, 0]
+    return tris, aabb
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("case", ["scene", "chunks"])
+def test_v3_twin_matches_numpy_walk(case, any_hit):
+    """The v3 twin against NumpyV3Walk: t, u, v, prim and each lane's
+    triangle and box tests equal, on 48 of the JAX tests' rays through the
+    subdiv=3 scene (21 clusters) and on 40 lanes of the synthetic scene
+    of CHUNK_M clusters, whose walks go through two chunks."""
+    if case == "scene":
+        scene_np = build_demo_scene(subdiv=3)[0]
+        tris, aabb = scene_np["dense_tris"], scene_np["dense_cluster_aabb"]
+        rays = _rays(scene_np, 48, 21)
+    else:
+        tris, aabb = chunk_tris()
+        rays = chunk_rays(40)
+    want = NumpyV3Walk(tris, aabb).walk(*rays, any_hit)
+    got = dense_v3._walk_ref(torch.from_numpy(tris), torch.from_numpy(aabb),
+                             *dense_curve.clamped_rays(
+                                 *map(torch.from_numpy, rays)),
+                             any_hit=any_hit, counts=True)
+    for x, key in zip(got, ("t", "u", "v", "prim", "work")):
+        np.testing.assert_array_equal(x.numpy(), want[key], err_msg=key)
+    hit = want["prim"] >= 0
+    assert 0.1 < hit.mean() < 0.9 and not hit[::7].any()  # dead lanes
+    walked = want["work"][:, 0] // 128
+    assert (walked <= want["entered"]).all()
+    if case == "chunks" and not any_hit:
+        assert (want["entered"] > per_ray.LIST).any()
+        assert (want["prim"][:20][rays[3][:20] == INF]
+                == 128 * (CHUNK_M - 1) + 5 * (CHUNK_M - 1) % 128).all()
 
 
 def test_wrappers_take_plain_version_on_cpu(scene_np):
@@ -423,3 +519,22 @@ def test_cuda_kernel_matches_plain(name):
             assert module.LAUNCHES[kind] == before + 1
             for k in ("t", "u", "v", "prim"):
                 assert torch.equal(got[k], ref[k]), (n, kind, k)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_cuda_v3_walks_chunks(any_hit):
+    """The v3 kernel vs its twin on the synthetic scene of CHUNK_M
+    clusters (two chunks of a lane's list), 2048 lanes: t, u, v, prim
+    bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the legacy kernels are CUDA-only)")
+    tris, aabb = (torch.from_numpy(x).cuda() for x in chunk_tris())
+    rays = dense_curve.clamped_rays(*(torch.from_numpy(r).cuda()
+                                      for r in chunk_rays(2048)))
+    got = dense_v3._walk_cuda(tris, aabb, *rays, any_hit=any_hit)
+    ref = dense_v3._walk_ref(tris, aabb, *rays, any_hit=any_hit)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert bool((ref[3] >= 0).any())
