@@ -30,10 +30,9 @@ all at max_steps=12, k_volume=3. Phase 3 checks each kernel against its
 plain torch version at its path's shapes and times both (dense_curve also
 on a dense tuft of 8192 strands, 3584 clusters, its twin on the first
 N_PLAIN_TUFT rays; the legacy v1 kernel, which no render path reaches,
-at the file path's shapes; the per-ray dense_v4, dense_v4 dual,
-dense_v5, dense_v5 dual, dense_v5l, dense_v5i, dense_curve and dense_v3
-kernels bit-equal to their twins, whose counts of each lane's tests print
-beside the need, and each dual's closest answer bit-equal to its single
+at the file path's shapes; all ten kernels walk per ray and are
+bit-equal to their twins, whose counts of each lane's tests print beside
+the need, and each dual's closest answer is bit-equal to its single
 kernel's; dense_v4 and dense_v3 also timed as whole wrapper calls);
 phase 4 checks small renders on the card against the same renders on the
 CPU (the instanced one on a 16-instance cut of its scene,
@@ -944,52 +943,47 @@ def v5i_phase(dense_v5i, scene, path_rays_, card):
 
 
 def legacy_case(name, module, tables, rays, any_hit, card):
-    """One legacy kernel vs its plain version: v1 and v2 (group walks) on
-    padded rays, v3 (per ray) on the rays themselves with its twin's own
-    counts of each lane's tests; t, u, v, prim equal to the bit; times (the
-    kernel median of 10 CUDA-event launches, the plain version median of
-    3) and the bound of the tests each lane needs (`curve_need`'s slab
-    test is the legacy kernels' own)."""
-    from pbrlab_tpu_torch.ops import dense, dense_v3
+    """One legacy kernel (v1, v2 or v3: each walks per ray) vs its twin on
+    the rays themselves, with the twin's own counts of each lane's tests;
+    t, u, v, prim equal to the bit; times (the kernel median of 10
+    CUDA-event launches, the twin median of 3) and the bound of the tests
+    each lane needs (`curve_need`'s slab test is the legacy kernels'
+    own), the walk against it."""
+    from pbrlab_tpu_torch.ops import dense
     from pbrlab_tpu_torch.ops.dense_curve import clamped_rays
 
     tris, aabb = tables
-    walks_per_ray = module is dense_v3
-    lanes = (clamped_rays if walks_per_ray else dense.pad_rays)(*rays)
-    args = (tris, aabb, *lanes)
+    args = (tris, aabb, *clamped_rays(*rays))
     got = module._walk_cuda(*args, any_hit=any_hit)
-    ref = module._walk_ref(*args, any_hit=any_hit,
-                           **({"counts": True} if walks_per_ray else {}))
+    *ref, work = module._walk_ref(*args, any_hit=any_hit, counts=True)
     torch.cuda.synchronize()
     for key, a, b in zip("tuvp", got, ref):
         if not torch.equal(a, b):
-            raise AssertionError(f"{name}: {key} differs from the plain "
-                                 f"version on {int((a != b).sum())} lanes")
-    n = rays[0].shape[0]
-    hit = ref[3][:n] >= 0
-    err = float((got[0][:n][hit] - ref[0][:n][hit]).abs().max()) \
-        if hit.any() else 0.0
+            raise AssertionError(f"{name}: {key} differs from the twin on "
+                                 f"{int((a != b).sum())} lanes")
+    hit = ref[3] >= 0
+    err = float((got[0][hit] - ref[0][hit]).abs().max()) if hit.any() \
+        else 0.0
     org, direction, min_t, max_t = rays
     if any_hit and module is not dense:
         tests, boxes = curve_need(aabb, org, direction, min_t, max_t, max_t,
                                   hit)
     else:  # closest (v1 answers the closest hit for any-hit queries too)
         tests, boxes = curve_need(aabb, org, direction, min_t, max_t,
-                                  torch.where(hit, ref[0][:n], max_t))
+                                  torch.where(hit, ref[0], max_t))
     ms = cuda_ms(lambda: module._walk_cuda(*args, any_hit=any_hit), reps=10)
     plain = cuda_ms(lambda: module._walk_ref(*args, any_hit=any_hit),
                     reps=3, warmup=1)
+    n = org.shape[0]
     b_ms, b_by = bound(nbytes(tris, aabb, *rays) + 16 * n,
                        OPS_TRI * tests + OPS_BOX * boxes)
-    walk = ""
-    if walks_per_ray:
-        walked = int(ref[4][:, 0].sum())
-        walk = (f"; the walk did {walked}, {walked / max(tests, 1):.3f}x, "
-                f"and {int(ref[4][:, 1].sum())} ray-box tests")
+    walked = int(work[:, 0].sum())
     print(f"{name}: N={n} hits={int(hit.sum())} t, u, v, prim bit-equal to "
-          f"the plain version (max|dt|={err:.3g}); kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {tests} "
-          f"ray-triangle and {boxes} ray-box tests needed{walk}) ({card})")
+          f"the twin (max|dt|={err:.3g}); kernel {ms:.4f} ms, twin "
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {tests} "
+          f"ray-triangle and {boxes} ray-box tests needed; the walk did "
+          f"{walked}, {walked / max(tests, 1):.3f}x, and "
+          f"{int(work[:, 1].sum())} ray-box tests) ({card})")
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err)
 
@@ -1214,7 +1208,7 @@ def main():
              inst["v5i.closest"] + inst["v5i.any_hit"], rec["v5i"])]
     legacy_src = "pbrlab_tpu_torch/csrc/dense_legacy.cu"
     f3, f2 = launches["file dense3"], launches["file dense"]
-    rows += [("dense_v3_trace", "pbrlab_tpu_torch/csrc/dense_v3.cu",
+    rows += [("dense_v3_trace", legacy_src,
               "pbrlab_tpu/ops/pallas/dense_v3.py:56",
               f3["v3.closest"] + f3["v3.any_hit"], rec["v3"]),
              ("dense_v2_trace", legacy_src,

@@ -2,7 +2,8 @@
 // dual and dense_v5l kernels (csrc/dense_v5.cu) and the dense_v5i kernel
 // (csrc/dense_v5i.cu), and the cluster walk (`cluster_walk` at the end of
 // this file) of the dense_v4 kernels (csrc/dense_v4.cu), the dense_curve
-// kernel (csrc/dense_curve.cu) and the dense_v3 kernel (csrc/dense_v3.cu).
+// kernel (csrc/dense_curve.cu) and the legacy dense v1, v2 and v3 kernels
+// (csrc/dense_legacy.cu).
 //
 // One thread walks one ray alone, with its own stack of (node, entry t)
 // pairs: no block reduction, no vote and no barrier anywhere in the walk.
@@ -238,7 +239,7 @@ __device__ __forceinline__ void walk(const Tables& tb, const Frame& world,
   }
 }
 
-// The legacy dense kernels' slab test (dense_curve, dense_v3; the Pallas
+// The legacy dense kernels' slab test (dense_curve, dense v1-v3; the Pallas
 // bodies' `(box - o) * inv` form, with inv = 1 / d and a |d| < 1e-12
 // component taken as +1e-12 whatever its sign, `inv_up`): the entry t of
 // the ray into box c of aabb [>= 6, m] if it enters before cap, else
@@ -273,14 +274,33 @@ __device__ __forceinline__ float slab_diff(const float* __restrict__ aabb,
                                                                 : kBig;
 }
 
-// The rule of the dense_curve and dense_v3 kernels: a candidate at t with
-// prim id beats h when its t is smaller, or equal with a lower slot (id
-// mod 8). The TPU keeps one best per slot with a strict `t < best` and at
-// the end takes the least t, the lowest slot on ties; one best per lane
-// with this rule keeps the same lexicographic minimum of (t, id mod 8),
-// the first visited on a full tie.
+// The tie rules of the legacy cluster kernels (dense_curve, and dense_v1,
+// v2 and v3 in csrc/dense_legacy.cu): a candidate at t with prim id beats
+// h when its t is smaller, or equal with a lower slot (id mod kSlots), or
+// with kById an equal slot and a lower id. The TPU keeps one best per
+// slot with a strict `t < best` and at the end takes the least t, the
+// lowest slot on ties; one best per lane with this rule keeps the same
+// lexicographic minimum of (t, id mod kSlots), then the lowest id (kById)
+// or the first visited. With kUpTo a candidate at the lane's initial best
+// (max t, while it has no hit) counts: the bound on t is inclusive.
+template <int Slots, bool ById, bool UpTo>
+struct TieRule {
+  static constexpr int kSlots = Slots;
+  static constexpr bool kById = ById;
+  static constexpr bool kUpTo = UpTo;
+  static __device__ __forceinline__ bool beats(float t, int id,
+                                               const Hit& h) {
+    const int a = id & (kSlots - 1), b = h.prim & (kSlots - 1);
+    return t < h.t ||
+           (t == h.t && (h.prim < 0 ? kUpTo
+                                    : a < b || (kById && a == b &&
+                                                id < h.prim)));
+  }
+};
+
+// dense_curve's rule: (t, id mod 8), the first visited on a full tie
 __device__ __forceinline__ bool beats(float t, int id, const Hit& h) {
-  return t < h.t || (t == h.t && h.prim >= 0 && (id & 7) < (h.prim & 7));
+  return TieRule<8, false, false>::beats(t, id, h);
 }
 
 // The cluster walk of one ray (no tree) over `clusters` clusters, in
@@ -297,7 +317,7 @@ __device__ __forceinline__ bool beats(float t, int id, const Hit& h) {
 // and no hit on entry (a lane with max t < min t tests nothing) and the
 // lane's answer on exit. The leaf functor carries the cluster's size and
 // its primitive test: dense_v4's 32 triangles, dense_curve's 128
-// ribbons, dense_v3's 128 legacy triangles.
+// ribbons, the legacy kernels' 128 triangles.
 template <bool kAnyHit, int kMax, class Box, class Leaf>
 __device__ __forceinline__ void cluster_walk(int clusters, float mint,
                                              const Box& box, const Leaf& leaf,

@@ -1,13 +1,14 @@
-"""Legacy dense v1 triangle trace: 8-ray blocks against every 128-triangle
-Morton cluster, with a per-block slab cull.
+"""Legacy dense v1 triangle trace, and what the three legacy traces
+share: the tables, the ray-triangle test, the per-ray twin and the launch.
 
-Port of pbrlab_tpu/ops/pallas/dense.py. One kernel, written by hand in
-CUDA for Hopper (`csrc/dense_legacy.cu`, `dense_v1_trace`), replaces the
-Pallas `_trace_kernel`. The JAX package reaches that kernel only from its
-own tests; its `pack_triangles` builds the `dense_tris` /
+Port of pbrlab_tpu/ops/pallas/dense.py. One kernel template, written by
+hand in CUDA for Hopper (`csrc/dense_legacy.cu` `legacy_kernel`), replaces
+the Pallas `_trace_kernel`s of dense.py (`dense_v1_trace`, here),
+dense_v2.py (`dense_v2_trace`, `ops/dense_v2.py`) and dense_v3.py
+(`dense_v3_trace`, `ops/dense_v3.py`). The JAX package reaches v1 only
+from its own tests; its `pack_triangles` builds the `dense_tris` /
 `dense_cluster_aabb` / `dense_order` tables that `commit` adds to every
-scene and that the v2 and v3 backends (`ops/dense_v2.py`,
-`ops/dense_v3.py`) trace.
+scene and that all three trace.
 
 Triangles are Morton-sorted and stored as linear forms, one column each
 of `packed [12, Fpad]` (Fpad a multiple of 128; padding columns are zero):
@@ -17,21 +18,33 @@ of `packed [12, Fpad]` (Fpad a multiple of 128; padding columns are zero):
 
 rows 0:3 n, 3 k0 (= n.v0), 4:7 b1, 7 c1 (= b1.v0), 8:11 b2, 11 c2.
 
-The TPU semantics kept: an aligned block of 8 rays enters cluster c when
-any of its rays' slab tests passes against that ray's max t (not its
-running best), and then each of the 8 rays tests all 128 triangles. A hit
-needs |den| > 1e-12, u, v >= 0, u + v <= 1 and min_t <= t <= max_t. The
-TPU keeps one best per triangle lane (id mod 128), strict `t < best` in
-cluster order, and at the end takes the least t, the lowest lane on ties:
-the lexicographic minimum of (t, id mod 128, cluster). The any_hit flag is
+The walk is per ray (`csrc/per_ray.cuh` `cluster_walk`, one thread a
+ray; its twin `walk_ref`): in chunks of 256 clusters in cluster order,
+each lane slab-tests its ray against the chunk's boxes (the Pallas
+bodies' `(box - o) * inv` arithmetic) capped at its own best t, orders
+the clusters it enters by entry t and tests their 128 triangles front to
+back until its best t lies before the next entry; any-hit ends a lane's
+walk after the first cluster that gives it a hit. The TPU walks groups
+instead (v1: an aligned block of 8 rays enters a cluster when any of its
+rays' boxes passes against that ray's max t), and every ray of a group
+tests every triangle of every cluster its group enters.
+
+Ties (`per_ray.TieRule`): v1's TPU body keeps one best per triangle lane
+(id mod 128) with a strict `t < best`, in cluster order, from INF with
+the bound t <= max_t, and at the end takes the least t, the lowest lane
+on ties: the lexicographic minimum of (t, id mod 128, id), which no visit
+order changes, up to max_t inclusive (`V1_RULE`). A hit needs |den| >
+1e-12, u, v >= 0, u + v <= 1 and t >= min_t. The any_hit flag is
 accepted and ignored, as in the JAX package: the answer is the closest
-hit. prim is the id in the SORTED order; the caller maps it back through
+hit. Against the JAX package the walks may differ on rays that graze a
+cluster box (ROADMAP C3). prim is the id in the SORTED order, int32
+(float32 on the TPU: ROADMAP C9); the caller maps it back through
 `order` (the scene's `dense_order`).
 
-The wrapper takes the kernel for CUDA tensors and the plain torch version
-(`_walk_ref`) for CPU tensors; `dense_trace_ref` runs the plain version on
-any device, which is what the kernel is compared with on the card.
-`LAUNCHES` counts kernel launches per mode.
+The wrapper takes the kernel for CUDA tensors and the twin (`_walk_ref`)
+for CPU tensors; `dense_trace_ref` runs the twin on any device, which is
+what the kernel is compared with on the card. `LAUNCHES` counts kernel
+launches per mode.
 """
 from __future__ import annotations
 
@@ -41,13 +54,11 @@ import numpy as np
 import torch
 
 from ..core.math import INF
-from . import cuda_lib
-from .dense_curve import _inv, morton_order
+from . import cuda_lib, per_ray
+from .dense_curve import _inv, clamped_rays, morton_order
 
 TRI_BLOCK = 128  # triangles per cluster (the TPU's lane count)
-LANES = 128  # rays per padded group (the TPU lane group; one CUDA block)
-RAY_BLOCK = 8  # rays that decide a cluster together (the TPU's sublanes)
-SLOP = 1.00000024  # the slab test's relative tolerance on tfar
+V1_RULE = per_ray.TieRule(slots=TRI_BLOCK, by_id=True, up_to=True)
 
 LAUNCHES = {"closest": 0, "any_hit": 0}
 
@@ -99,21 +110,6 @@ def pack_triangles(tri_v0: np.ndarray, tri_e1: np.ndarray,
     return packed, aabb, order
 
 
-def slab(aabb, c, o, inv):
-    """The Pallas bodies' slab test of every lane against cluster c:
-    (tnear, tfar), with o and inv the lanes' origin and inverse direction
-    components (any shape)."""
-    t0 = [(aabb[k, c] - o[k]) * inv[k] for k in range(3)]
-    t1 = [(aabb[k + 3, c] - o[k]) * inv[k] for k in range(3)]
-    tnear = torch.maximum(torch.maximum(torch.minimum(t0[0], t1[0]),
-                                        torch.minimum(t0[1], t1[1])),
-                          torch.minimum(t0[2], t1[2]))
-    tfar = torch.minimum(torch.minimum(torch.maximum(t0[0], t1[0]),
-                                       torch.maximum(t0[1], t1[1])),
-                         torch.maximum(t0[2], t1[2]))
-    return tnear, tfar
-
-
 def tri_test(rows, o, d, mint):
     """The Pallas bodies' ray-triangle test in their order of operations:
     rows the 12 linear-form rows (broadcast against the lanes' o, d and
@@ -133,115 +129,102 @@ def tri_test(rows, o, d, mint):
     return t, u, v, ok
 
 
-def _walk_ref(tris, aabb, org, direction, min_t, max_t, any_hit=False):
-    """Plain torch version of the kernel on padded lanes (a multiple of 8,
-    max_t clamped to INF): for each cluster, the block vote, then all
-    lanes against its 128 triangles at once as [N, 128], one running best
-    per (ray, triangle lane) as on the TPU; any_hit is ignored. Returns
-    (t, u, v, prim): t = INF and prim = -1 where nothing was hit, u = v =
-    0 there."""
-    n = org.shape[0]
-    dev = org.device
-    o = [org[:, k:k + 1] for k in range(3)]  # [N, 1]
+def walk_ref(rule, tris, aabb, org, direction, min_t, max_t,
+             any_hit=False, counts=False):
+    """Plain torch twin of the legacy kernels with tie rule `rule` (max_t
+    already clamped to INF): each lane's walk (`per_ray.cluster_walk` over
+    `per_ray.diff_enter`), a cluster's 128 triangles tested as one [k, 128]
+    block with the Pallas bodies' operations (`tri_test`) and kept with
+    `per_ray.beats_ref`. Returns (t, u, v, prim) and, with counts, [N, 3]
+    int64 per lane: ray-triangle tests, ray-box tests, 0. t = max_t and
+    prim = -1 where nothing was hit."""
+    o = [org[:, k:k + 1] for k in range(3)]
     d = [direction[:, k:k + 1] for k in range(3)]
-    inv = [_inv(x) for x in d]
-    mint, maxt = min_t[:, None], max_t[:, None]
-    best_t = torch.full((n, TRI_BLOCK), INF, device=dev)
-    best_u = torch.zeros_like(best_t)
-    best_v = torch.zeros_like(best_t)
-    best_c = torch.zeros((n, TRI_BLOCK), dtype=torch.int32, device=dev)
-    for c in range(aabb.shape[1]):
-        tnear, tfar = slab(aabb, c, o, inv)
-        box_hit = (tnear <= tfar * SLOP) & (tfar >= mint) & (tnear <= maxt)
-        do = box_hit.reshape(-1, RAY_BLOCK).any(dim=1).repeat_interleave(
-            RAY_BLOCK)[:, None]
-        rows = tris[:, c * TRI_BLOCK:(c + 1) * TRI_BLOCK][:, None, :]
-        t, u, v, ok = tri_test(rows, o, d, mint)
-        hit = ok & (t <= maxt) & (t < best_t) & do
-        best_u = torch.where(hit, u, best_u)
-        best_v = torch.where(hit, v, best_v)
-        best_c = torch.where(hit, c, best_c)
-        best_t = torch.where(hit, t, best_t)
-    # least t over the triangle lanes, the lowest lane on ties
-    tmin = best_t.amin(dim=1, keepdim=True)
-    lane = torch.arange(TRI_BLOCK, dtype=torch.int32, device=dev)
-    first = torch.where(best_t == tmin, lane, TRI_BLOCK).amin(
-        dim=1, keepdim=True).to(torch.int64)
-    found = tmin[:, 0] < INF
+    mint = min_t[:, None]
+    cols = torch.arange(TRI_BLOCK, device=org.device)
 
-    def pick(x):
-        return torch.gather(x, 1, first)[:, 0]
+    def visit(ln, c, best):
+        ids = c[:, None] * TRI_BLOCK + cols  # [k, 128]
+        t, u, v, ok = tri_test(tris[:, ids].unbind(0), [x[ln] for x in o],
+                               [x[ln] for x in d], mint[ln])
+        per_ray.beats_ref(ln, ids, t, ok, u, v, best, rule)
 
-    prim = torch.where(found, pick(best_c) * TRI_BLOCK + first[:, 0], -1)
-    return (tmin[:, 0], pick(best_u), pick(best_v), prim.to(torch.int32))
+    return per_ray.cluster_walk(
+        aabb.shape[1], TRI_BLOCK,
+        per_ray.diff_enter(aabb, org, _inv(direction), min_t), visit, min_t,
+        max_t, any_hit=any_hit, counts=counts)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# tris, fpad, aabb, clusters, org, dir, min_t, max_t, v1's inf or v2 / v3's
+# any_hit, n, outs, stream
 _ARGS = [_P, _I, _P, _I, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P, _P]
 
 
-def _walk_cuda(tris, aabb, org, direction, min_t, max_t, any_hit=False):
-    """Launch the dense v1 kernel on the current stream; same returns as
-    `_walk_ref` (any_hit only picks the launch counter)."""
+def launch(name, flag, tris, aabb, org, direction, min_t, max_t):
+    """Launch the legacy kernel `name` (dense_v1_trace, dense_v2_trace or
+    dense_v3_trace) on the current stream, flag its ninth argument (v1's
+    INF, a float; v2's and v3's any_hit, an int); raises on a launch
+    error. Returns (t, u, v, prim) as `walk_ref`."""
+    label = name.removesuffix("_trace").replace("_", " ")
     dev = org.device
     n = org.shape[0]
     m = aabb.shape[1]
     f32 = torch.float32
     check = cuda_lib.check_tensor
-    check("dense v1", tris, f32, (12, m * TRI_BLOCK), dev)
-    check("dense v1", aabb, f32, (8, m), dev)
+    check(label, tris, f32, (12, m * TRI_BLOCK), dev)
+    check(label, aabb, f32, (8, m), dev)
     for x, shape in ((org, (n, 3)), (direction, (n, 3)), (min_t, (n,)),
                      (max_t, (n,))):
-        check("dense v1", x, f32, shape, dev)
-    if n % TRI_BLOCK:
-        raise ValueError(f"{n} lanes is not a whole number of {TRI_BLOCK}-"
-                         "lane blocks")
+        check(label, x, f32, shape, dev)
+    # cluster c's columns start at 128 c: one float4 is 4 triangles
+    cuda_lib.check_float4_rows(label, tris, tris.shape[1])
     t = torch.empty((n,), dtype=f32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    args = list(_ARGS)
+    args[8] = _F if isinstance(flag, float) else _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = cuda_lib.function("dense_v1_trace", _ARGS)(
+        rc = cuda_lib.function(name, args)(
             tris.data_ptr(), tris.shape[1], aabb.data_ptr(), m,
             org.data_ptr(), direction.data_ptr(), min_t.data_ptr(),
-            max_t.data_ptr(), INF, n, t.data_ptr(), u.data_ptr(),
+            max_t.data_ptr(), flag, n, t.data_ptr(), u.data_ptr(),
             v.data_ptr(), prim.data_ptr(), stream)
-    kind = "any_hit" if any_hit else "closest"
-    cuda_lib.launched(f"dense v1 {kind}", rc)
-    LAUNCHES[kind] += 1
+    cuda_lib.launched(label, rc)
     return t, u, v, prim
 
 
-def pad_rays(org, direction, min_t, max_t):
-    """Pad the lanes to whole 128-lane groups as the JAX wrappers pad (org
-    0, direction 1, min_t 0, max_t -1 = dead) and clamp max_t to INF."""
-    n = org.shape[0]
-    pad = -n % LANES
-
-    def padded(x, value):
-        if pad:
-            x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]),
-                                         value)])
-        return x.contiguous()
-
-    return (padded(org, 0.0), padded(direction, 1.0), padded(min_t, 0.0),
-            torch.clamp(padded(max_t, -1.0), max=INF))
+def trace(walk_cuda, walk_ref_, packed, aabb, org, direction, min_t, max_t,
+          any_hit, plain):
+    """A legacy wrapper: the kernel (walk_cuda) for CUDA tensors unless
+    plain, else the twin (walk_ref_), on the clamped rays -> dict(t, u, v,
+    prim), t = INF and prim = -1 on a miss."""
+    walk = walk_cuda if org.is_cuda and not plain else walk_ref_
+    t, u, v, prim = walk(packed.contiguous(), aabb.contiguous(),
+                         *clamped_rays(org, direction, min_t, max_t),
+                         any_hit=any_hit)
+    return {"t": torch.where(prim >= 0, t, INF), "u": u, "v": v,
+            "prim": prim}
 
 
-def finish(t, u, v, prim, n):
-    """Unpad and give t = INF on a miss (the JAX wrappers' outputs)."""
-    hit = prim[:n] >= 0
-    return {"t": torch.where(hit, t[:n], INF), "u": u[:n], "v": v[:n],
-            "prim": prim[:n]}
+def _walk_ref(tris, aabb, org, direction, min_t, max_t, any_hit=False,
+              counts=False):
+    """The v1 twin (`walk_ref` with V1_RULE, any_hit ignored): t = INF
+    where nothing was hit, as the kernel writes it."""
+    out = walk_ref(V1_RULE, tris, aabb, org, direction, min_t, max_t,
+                   counts=counts)
+    return (torch.where(out[3] >= 0, out[0], INF), *out[1:])
 
 
-def _trace(packed, aabb, org, direction, min_t, max_t, any_hit, plain):
-    n = org.shape[0]
-    rays = pad_rays(org, direction, min_t, max_t)
-    packed, aabb = packed.contiguous(), aabb.contiguous()
-    walk = _walk_cuda if org.is_cuda and not plain else _walk_ref
-    return finish(*walk(packed, aabb, *rays, any_hit=any_hit), n)
+def _walk_cuda(tris, aabb, org, direction, min_t, max_t, any_hit=False):
+    """Launch the dense v1 kernel; same first four returns as `_walk_ref`
+    (any_hit only picks the launch counter)."""
+    out = launch("dense_v1_trace", INF, tris, aabb, org, direction, min_t,
+                 max_t)
+    LAUNCHES["any_hit" if any_hit else "closest"] += 1
+    return out
 
 
 def dense_trace(packed_tris, cluster_aabb, org, direction, min_t, max_t,
@@ -249,12 +232,12 @@ def dense_trace(packed_tris, cluster_aabb, org, direction, min_t, max_t,
     """Closest hit of rays vs the packed triangle set -> dict(t, u, v,
     prim): prim indexes the SORTED order (-1 and t = INF on a miss).
     any_hit is accepted and ignored, as in the JAX package."""
-    return _trace(packed_tris, cluster_aabb, org, direction, min_t, max_t,
-                  any_hit, plain=False)
+    return trace(_walk_cuda, _walk_ref, packed_tris, cluster_aabb, org,
+                 direction, min_t, max_t, any_hit, plain=False)
 
 
 def dense_trace_ref(packed_tris, cluster_aabb, org, direction, min_t, max_t,
                     any_hit=False):
     """Plain torch version of `dense_trace` on any device."""
-    return _trace(packed_tris, cluster_aabb, org, direction, min_t, max_t,
-                  any_hit, plain=True)
+    return trace(_walk_cuda, _walk_ref, packed_tris, cluster_aabb, org,
+                 direction, min_t, max_t, any_hit, plain=True)

@@ -1,9 +1,9 @@
 """Plain torch twins of the per-ray walks of `csrc/per_ray.cuh`: the BVH
 walk, which the dense_v5, dense_v5l and dense_v5i kernels run
 (`walk_ref`), and the cluster walk (`cluster_walk`) of the dense_v4
-kernels (`cluster_walk_ref`), the dense_curve kernel and the dense_v3
-kernel (their modules hold the cluster tests; `diff_enter` and
-`beats_ref` are the legacy slab test and tie rule they share).
+kernels (`cluster_walk_ref`), the dense_curve kernel and the legacy dense
+v1, v2 and v3 kernels (their modules hold the cluster tests; `diff_enter`
+and `beats_ref` are the legacy slab test and tie rules they share).
 
 Every lane walks alone: it has its own stack of (node, entry t) entries
 (`[N, stack]` ids and entry t) and its own pointer. Each step pops one
@@ -39,6 +39,8 @@ lane, the primitive tests, ray-box tests and instance transforms they
 did.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -315,7 +317,7 @@ def cluster_walk_ref(tris, cluster_aabb, org, direction, min_t, max_t,
 
 def diff_enter(aabb, org, inv, min_t):
     """`enter` of `cluster_walk` for the legacy dense kernels' slab test
-    (`per_ray::slab_diff`: dense_curve, dense_v3): the entry t of each
+    (`per_ray::slab_diff`: dense_curve, dense v1-v3): the entry t of each
     lane's ray (org [N, 3], inv the Pallas bodies' 1 / direction [N, 3])
     into boxes c0..c1 - 1 of aabb [>= 6, M] in the `(box - o) * inv` form,
     where `tnear <= tfar (1 + 2.4e-7)`, `tfar >= min_t` and `tnear <=
@@ -340,24 +342,47 @@ def diff_enter(aabb, org, inv, min_t):
     return enter
 
 
-def beats_ref(ln, ids, t, ok, u, v, best):
-    """Lanes ln [k] against a block of candidates [k, B] (prim ids, t,
-    validity up to the bound on t, u, v) in order, with the rule of
-    `per_ray::beats`: a valid candidate wins when its t is below the
-    lane's best t, or equal to it with a lower slot (id mod 8). So each
-    lane keeps the lexicographic minimum of (t, id mod 8), the first
-    visited on a full tie. best = (t, u, v, prim) [N], updated in place."""
+class TieRule(NamedTuple):
+    """A legacy cluster kernel's tie rule (`per_ray::TieRule`): a valid
+    candidate beats the lane's best when its t is smaller, or equal with
+    a lower slot (id mod `slots`), or with `by_id` an equal slot and a
+    lower id; with `up_to` a candidate at the lane's initial best (max t,
+    while it has no hit) counts, so the bound on t is inclusive."""
+    slots: int = 8
+    by_id: bool = False
+    up_to: bool = False
+
+
+SLOT_RULE = TieRule()  # dense_curve and dense_v3: (t, id mod 8), first seen
+
+
+def beats_ref(ln, ids, t, ok, u, v, best, rule=SLOT_RULE):
+    """Lanes ln [k] against a block of candidates [k, B] (prim ids,
+    increasing along the block, t, validity up to the bound on t, u, v)
+    in order, with `rule` (a TieRule). So each lane keeps the
+    lexicographic minimum of (t, id mod slots), then the lowest id
+    (by_id) or the first visited. best = (t, u, v, prim) [N], updated in
+    place."""
     best_t, best_u, best_v, best_p = best
     bt, bp = best_t[ln], best_p[ln]
-    ok = ok & ((t < bt[:, None]) | ((t == bt[:, None]) & (bp >= 0)[:, None]))
+    tie = (bp >= 0) | rule.up_to
+    ok = ok & ((t < bt[:, None]) | ((t == bt[:, None]) & tie[:, None]))
     tk = torch.where(ok, t, float("inf")).amin(dim=1)
-    width = t.shape[1]
-    # among the least t: the lowest slot, then the first visited
-    rank = (ids & 7) * width + torch.arange(width, device=t.device)
-    key = torch.where(ok & (t == tk[:, None]), rank, 8 * width).amin(dim=1)
-    better = (key < 8 * width) & ((tk < bt) | (key // width < (bp & 7)))
-    w, kw = ln[better], (key % width)[better][:, None]
+    width, mask = t.shape[1], rule.slots - 1
+    # among the least t: the lowest slot, then the first in the block (its
+    # lowest id)
+    rank = (ids & mask) * width + torch.arange(width, device=t.device)
+    none = rule.slots * width
+    key = torch.where(ok & (t == tk[:, None]), rank, none).amin(dim=1)
+    slot, kw = key // width, (key % width)[:, None]
+    pid = torch.gather(ids, 1, kw)[:, 0]
+    bslot = bp & mask
+    better = (tk < bt) | (bp < 0) | (slot < bslot)
+    if rule.by_id:
+        better |= (slot == bslot) & (pid < bp)
+    better &= key < none
+    w = ln[better]
     best_t[w] = tk[better]
-    best_u[w] = torch.gather(u[better], 1, kw)[:, 0]
-    best_v[w] = torch.gather(v[better], 1, kw)[:, 0]
-    best_p[w] = torch.gather(ids[better], 1, kw)[:, 0].to(torch.int32)
+    best_u[w] = torch.gather(u[better], 1, kw[better])[:, 0]
+    best_v[w] = torch.gather(v[better], 1, kw[better])[:, 0]
+    best_p[w] = pid[better].to(torch.int32)

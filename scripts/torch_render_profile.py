@@ -9,8 +9,10 @@ device busy time and idle share, and the device time by kernel.
 dense_v4; mid: subdiv=4, dense_v5; large: subdiv=5 irregular,
 dense_v5s/v5l; hair: subdiv=3 with the demo tuft, dense_v4 and
 dense_curve; instanced: chip_smoke.instanced_builder() through
-build_instanced, dense_v5i); each render runs at max_steps=12,
-k_volume=3, seed 7. --root is the checkout whose `pbrlab_tpu_torch` and
+build_instanced, dense_v5i; dense and dense3: the cornellbox, whose
+legacy tables are the file path's, with the render's tri_backend forced
+to "dense" (dense_v2) or "dense3" (dense_v3)); each render runs at
+max_steps=12, k_volume=3, seed 7. --root is the checkout whose `pbrlab_tpu_torch` and
 `chip_smoke.py` are imported (default: the one holding this script), so
 two commits can be compared on one card in one call by running them in
 turns (A, B, B, A). For each path the scene is rendered once at 32x32x1
@@ -18,9 +20,12 @@ turns (A, B, B, A). For each path the scene is rendered once at 32x32x1
 (host clock around work that ends in a synchronize), then, unless
 --no-profile, once under torch.profiler; the idle share is 1 - device
 busy / the median unprofiled wall. The trace kernels' device time is
-printed in all and, for the cornellbox, mid, large, hair and instanced
-paths, the dense_v4 (with its dual), dense_v5 (with its dual), dense_v5l,
-dense_curve or dense_v5i kernels' alone. Fails without a CUDA device.
+printed in all and, for the cornellbox, mid, large, hair, instanced,
+dense and dense3 paths, the dense_v4 (with its dual), dense_v5 (with its
+dual), dense_v5l, dense_curve, dense_v5i, dense_v2 or dense_v3 kernels'
+alone (the legacy kernels by their names before and after their
+template, so that older checkouts profile too). Fails without a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -35,15 +40,21 @@ import torch
 
 SCENES = {"cornellbox": dict(subdiv=3), "mid": dict(subdiv=4),
           "large": dict(subdiv=5, irregular=True),
-          "hair": dict(subdiv=3, with_hair=True), "instanced": None}
-CURVE = "curve_kernel"  # csrc/dense_curve.cu
-V5I = "v5i_kernel"  # csrc/dense_v5i.cu
-V4 = "v4_kernel"  # csrc/dense_v4.cu: dense_v4 and its dual
-V5 = "v5_kernel"  # csrc/dense_v5.cu: dense_v5 and its dual
-V5L = "v5l_kernel"  # csrc/dense_v5.cu: dense_v5l
-OWN = (V4, V5, CURVE, V5I, V5L)
-# the kernel each path reports
-ONE = {"cornellbox": V4, "instanced": V5I, "large": V5L, "mid": V5}
+          "hair": dict(subdiv=3, with_hair=True), "instanced": None,
+          "dense": dict(subdiv=3), "dense3": dict(subdiv=3)}
+BACKEND = {"dense": "dense", "dense3": "dense3"}  # forced tri_backend
+CURVE = ("curve_kernel",)  # csrc/dense_curve.cu
+V5I = ("v5i_kernel",)  # csrc/dense_v5i.cu
+V4 = ("v4_kernel",)  # csrc/dense_v4.cu: dense_v4 and its dual
+V5 = ("v5_kernel",)  # csrc/dense_v5.cu: dense_v5 and its dual
+V5L = ("v5l_kernel",)  # csrc/dense_v5.cu: dense_v5l
+# csrc/dense_legacy.cu: one template for v1-v3 (a forced backend runs one
+# of them); older checkouts name them v1_kernel, v2_kernel and v3_kernel
+LEGACY = ("legacy_kernel", "v1_kernel", "v2_kernel", "v3_kernel")
+OWN = V4 + V5 + CURVE + V5I + V5L + LEGACY
+# the kernels each path reports
+ONE = {"cornellbox": V4, "instanced": V5I, "large": V5L, "mid": V5,
+       "hair": CURVE, "dense": LEGACY, "dense3": LEGACY}
 
 
 def profile(path, run, size, spp, wall, iters, card):
@@ -58,16 +69,15 @@ def profile(path, run, size, spp, wall, iters, card):
     count = sum(e.count for e in kernels)
     own = [e for e in kernels if any(k in e.key for k in OWN)]
     own_s = sum(e.self_device_time_total for e in own) / 1e6
-    one = ONE.get(path, CURVE)
-    one_s = sum(e.self_device_time_total for e in own
-                if one in e.key) / 1e6
-    one_n = sum(e.count for e in own if one in e.key)
+    one = [e for e in own if any(k in e.key for k in ONE[path])]
+    one_s = sum(e.self_device_time_total for e in one) / 1e6
+    one_n = sum(e.count for e in one)
     print(f"{path} {size}x{size}x{spp}: {iters} sub-iterations; wall "
           f"{wall:.3f} s unprofiled, {prof_wall:.3f} s profiled; {count} "
           f"device kernels ({count / iters:.0f} per sub-iteration), device "
           f"busy {busy:.3f} s, idle share {1 - busy / wall:.3f}; trace "
           f"kernels {own_s:.3f} s ({own_s / busy * 100:.1f}% of busy), of "
-          f"which {one} {one_s:.3f} s ({one_s / busy * 100:.1f}% of busy, "
+          f"which {'/'.join(ONE[path])} {one_s:.3f} s ({one_s / busy * 100:.1f}% of busy, "
           f"{one_n} launches) ({card})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e6:9.4f} s {e.count:8d}x "
@@ -116,7 +126,7 @@ def main():
             t0 = time.perf_counter()
             _, iters = render_lanes_wavefront(
                 scene, size, size, spp, seed=7, max_steps=12, k_volume=3,
-                return_iters=True)
+                return_iters=True, tri_backend=BACKEND.get(path))
             torch.cuda.synchronize()
             return time.perf_counter() - t0, iters
 

@@ -302,13 +302,18 @@ class NumpyChunkWalk:
             return tnear
         return BIG
 
+    def beats(self, t, i, s):
+        """Whether a valid candidate at t with id i beats the lane's state
+        s: a smaller t, or an equal one with a lower id mod 8."""
+        return t < s["t"] or (t == s["t"] and s["prim"] >= 0
+                              and i % 8 < s["prim"] % 8)
+
     def visit(self, c, o, d, s):
         t, u, v, ok = self.test(c, o, d, s["mint"])
         s["prims"] += self.size
         for k in np.flatnonzero(ok):
             i = c * self.size + k
-            if t[k] < s["t"] or (t[k] == s["t"] and s["prim"] >= 0
-                                 and i % 8 < s["prim"] % 8):
+            if self.beats(t[k], i, s):
                 s.update(t=t[k], u=u[k], v=v[k], prim=i)
 
     def walk(self, org, direction, min_t, max_t, any_hit=False):

@@ -12,26 +12,33 @@ interpret-mode program is 32 times smaller (compile ~2.5 s, not ~50 s;
 the 500-ray results are bit-equal either way, CPU measurement). Its own
 jitted function and cache are untouched.
 
-v1 and v2 keep the TPU's group walks. v3 walks per ray (its twin: each
-lane walks the clusters its own ray enters, in the order of its own
-entry t, until its own best t), where the TPU's v3 walks a group's
-survivor list behind a beam cull; so on rays that graze a cluster box,
-and on full ties, v3 may differ from JAX (ROADMAP C3), within the band
-below, and its `cull` argument no longer changes the answer. Measured
-(CPU, 500 rays, either cull): closest, hit masks and prim equal to JAX's
-on all 190 hit lanes, t bit-equal on 178 (relative <= 3.5e-6, XLA:CPU's
-contractions, below); any-hit masks equal.
-The v3 twin is also held against an independent per-lane numpy loop
+All three walk per ray now, on one kernel and one twin (`dense.walk_ref`:
+each lane walks the clusters its own ray enters, in the order of its own
+entry t, until its own best t), where the TPU's kernels walk groups (v1
+8-ray blocks, v2 128-ray groups, v3 a group's survivor list behind a beam
+cull); so on rays that graze a cluster box they may differ from JAX
+(ROADMAP C3), within the band below. Their tie rules differ: v1 takes the
+lexicographic minimum of (t, id mod 128, id) up to max_t inclusive, v2
+of (t, id mod 8, id) below max_t; neither depends on the visit order, so
+both match JAX on full ties too. v3 takes (t, id mod 8), then the first
+visited, which follows the walk (ROADMAP C3: a nested box's copy wins in
+the port and in JAX's beam cull, the other copy in JAX's exact cull), and
+its `cull` argument no longer changes the answer. Measured (CPU, 500
+rays): closest, for each of v1, v2 and v3 (either cull), hit masks and
+prim equal to JAX's on all 190 hit lanes, t bit-equal on 178
+(relative <= 3.5e-6, XLA:CPU's contractions, below), u and v within
+1.9e-6; any-hit masks equal (v2, v3; v1 answers the closest hit).
+The three twins are also held against an independent per-lane numpy loop
 (test_torch_dense_curve.py's `NumpyChunkWalk` with the legacy triangle
-test), also on a synthetic scene of more clusters than a lane's list
-holds.
+test and each kernel's tie rule), also on a synthetic scene of more
+clusters than a lane's list holds.
 
 Band (CPU measurement): the plain versions compute the Pallas bodies'
 float32 linear forms in the same order, each product and sum rounded on
 its own: t equals a numpy float32 evaluation of the winning triangle to
 the bit. XLA:CPU contracts some products and sums into fused
 multiply-adds (ROADMAP C7): against JAX, 12 of the 190 hit lanes differ
-in t, 2 by more than rtol 1e-6 (3.5e-6 at most), u and v by 1.6e-6 at
+in t, 2 by more than rtol 1e-6 (3.5e-6 at most), u and v by 1.9e-6 at
 most, for each of the four traces. So: hit masks equal except grazing
 lanes (measured 0 of 500; allowed 1%), t within rtol 1e-6 on >= 98% of
 hits and rtol 1e-5 on all, u and v within atol 1e-5, prim equal where t
@@ -200,11 +207,12 @@ def test_plain_matches_jax(scene_np, jax_kernels, name, any_hit):
         assert torch.equal(got[k], ref[k]), k
 
 
-def _tie_scene(ids):
-    """Two coincident copies of one triangle in the columns `ids` of an
-    otherwise empty 2-cluster table, both clusters boxed around it, and
-    500 rays through its interior from above: every lane hits both copies
-    at the same t."""
+def _tie_scene(ids, nested=False):
+    """Coincident copies of one triangle in the columns `ids` of an
+    otherwise empty 2-cluster table, both clusters boxed around it (with
+    nested, cluster 1's box grown by 0.5 on every side, so a ray enters
+    it first), and 500 rays through its interior from above: every lane
+    hits every copy at t = 1."""
     from pbrlab_tpu_torch.ops.dense import pack_triangles
 
     v0 = np.asarray([[0.0, 0.0, 0.0]], np.float32)
@@ -215,6 +223,9 @@ def _tie_scene(ids):
     for i in ids:
         tris[:, i] = col[:, 0]
     aabb = np.concatenate([box[:, :1], box[:, :1]], axis=1)
+    if nested:
+        aabb[0:3, 1] -= 0.5
+        aabb[3:6, 1] += 0.5
     rng = np.random.default_rng(7)
     uv = rng.random((N, 2)) * 0.45
     org = np.stack([uv[:, 0], np.full(N, 1.0), uv[:, 1]], 1)
@@ -224,28 +235,65 @@ def _tie_scene(ids):
                         np.full(N, INF, f32))
 
 
-@pytest.mark.parametrize("name", ["v1", "v2", "v3-beam"])
+# (copies, nested): (port, JAX) per kernel; v3 on a full tie keeps the
+# first visited, and the port's walk, JAX's beam and JAX's exact survivor
+# lists visit the nested pair in other orders (ROADMAP C3)
+TIES = {((10, 130), False): {"v1": (130, 130), "v2": (10, 10),
+                             "v3-beam": (10, 10), "v3-exact": (10, 10)},
+        ((13, 130), False): {"v1": (130, 130), "v2": (130, 130),
+                             "v3-beam": (130, 130), "v3-exact": (130, 130)},
+        ((10, 138), True): {"v1": (10, 10), "v2": (10, 10),
+                            "v3-beam": (138, 138), "v3-exact": (138, 10)}}
+
+
+@pytest.mark.parametrize("name", ["v1", "v2", "v3-beam", "v3-exact"])
 def test_exact_tie_rules(jax_kernels, name):
     """Exact ties resolve as on the TPU. v1 keeps one best per triangle
     lane (id mod 128) and takes the lowest lane; v2 / v3 one per slot
-    (id mod 8), the lowest slot, and within a slot the first visited.
-    Copies at ids 10 (lane 10, slot 2) and 130 (lane 2, slot 2): v1 takes
-    130, v2 / v3 take 10. Copies at 13 (slot 5) and 130 (slot 2): all
-    take 130."""
+    (id mod 8), the lowest slot, and within a slot v1 and v2 the lowest
+    id, v3 the first visited. Copies at ids 10 (lane 10, slot 2) and 130
+    (lane 2, slot 2): v1 takes 130, v2 / v3 take 10. Copies at 13 (slot 5)
+    and 130 (slot 2): all take 130. Copies at 10 and 138 (one lane, one
+    slot) with cluster 1's box around cluster 0's, so that every ray
+    enters cluster 1 first: v1 and v2 take 10, as JAX does; the port's v3
+    walks cluster 1 first and takes 138, as JAX's beam cull does, where
+    JAX's exact cull takes 10 (`TIES`)."""
     import jax.numpy as jnp
 
     fn, _, jax_name, kw = KERNELS[name]
-    for ids, want_v1, want_v23 in (((10, 130), 130, 10),
-                                   ((13, 130), 130, 130)):
-        tris, aabb, rays = _tie_scene(ids)
+    for (ids, nested), expect in TIES.items():
+        tris, aabb, rays = _tie_scene(ids, nested)
         got = fn(torch.from_numpy(tris), torch.from_numpy(aabb),
                  *map(torch.from_numpy, rays), **kw)
         want = jax_kernels[jax_name](jnp.asarray(tris), jnp.asarray(aabb),
                                      *map(jnp.asarray, rays), **kw)
-        expect = want_v1 if name == "v1" else want_v23
-        assert (got["prim"].numpy() == expect).all(), (ids, name)
-        np.testing.assert_array_equal(np.asarray(want["prim"]), expect)
+        port, jax_ = expect[name]
+        assert (got["prim"].numpy() == port).all(), (ids, name)
+        np.testing.assert_array_equal(np.asarray(want["prim"]), jax_)
         np.testing.assert_array_equal(got["t"].numpy(), np.float32(1.0))
+
+
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_hit_at_max_t(jax_kernels, name):
+    """A hit at exactly max_t (t = 1 to the bit): v1 bounds t by max_t
+    inclusive (its best starts at INF) and hits, v2 and v3 fold max_t
+    into the initial best with a strict `t < best` and miss; each as
+    JAX."""
+    import jax.numpy as jnp
+
+    fn, _, jax_name, kw = KERNELS[name]
+    tris, aabb, (org, d, min_t, _) = _tie_scene((10,))
+    rays = (org, d, min_t, np.ones_like(min_t))
+    got = fn(torch.from_numpy(tris), torch.from_numpy(aabb),
+             *map(torch.from_numpy, rays), **kw)
+    want = jax_kernels[jax_name](jnp.asarray(tris), jnp.asarray(aabb),
+                                 *map(jnp.asarray, rays), **kw)
+    prim = 10 if name == "v1" else -1
+    assert (got["prim"].numpy() == prim).all()
+    np.testing.assert_array_equal(np.asarray(want["prim"]), prim)
+    np.testing.assert_array_equal(got["t"].numpy(),
+                                  np.float32(1.0 if prim >= 0 else INF))
+    np.testing.assert_array_equal(np.asarray(want["t"]), got["t"].numpy())
 
 
 def test_pack_triangles_matches_jax():
@@ -296,13 +344,25 @@ def test_cull_matches_jax():
 
 class NumpyV3Walk(NumpyChunkWalk):
     """NumpyChunkWalk (test_torch_dense_curve.py: chunks, the legacy box
-    test, stable order, the lane's own exit, the (t, id mod 8) rule) over
-    the v1 tables: the Pallas body's ray-triangle test on the linear
-    forms, every product and sum rounded on its own, in its order."""
+    test, stable order, the lane's own exit) over the v1 tables: the
+    Pallas body's ray-triangle test on the linear forms, every product and
+    sum rounded on its own, in its order, and a kernel's tie rule: a valid
+    triangle taken when its t is smaller, or equal with a lower id mod
+    `slots`, or with by_id an equal slot and a lower id; with up_to one
+    at the lane's max t while it has no hit (`RULES`)."""
 
-    def __init__(self, tris, aabb):
+    def __init__(self, tris, aabb, slots=8, by_id=False, up_to=False):
         super().__init__(aabb)
         self.tris = tris
+        self.slots, self.by_id, self.up_to = slots, by_id, up_to
+
+    def beats(self, t, i, s):
+        if t != s["t"]:
+            return t < s["t"]
+        if s["prim"] < 0:
+            return self.up_to
+        a, b = i % self.slots, s["prim"] % self.slots
+        return a < b or (self.by_id and a == b and i < s["prim"])
 
     def test(self, c, o, d, mint):
         (nx, ny, nz, k0, b1x, b1y, b1z, c1, b2x, b2y, b2z,
@@ -338,13 +398,22 @@ def chunk_tris():
     return tris, aabb
 
 
+# name: (module, NumpyV3Walk's rule); v1 ignores any_hit
+RULES = {"v1": (dense, dict(slots=128, by_id=True, up_to=True)),
+         "v2": (dense_v2, dict(by_id=True)),
+         "v3": (dense_v3, {})}
+
+
+@pytest.mark.parametrize("name", list(RULES))
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("case", ["scene", "chunks"])
-def test_v3_twin_matches_numpy_walk(case, any_hit):
-    """The v3 twin against NumpyV3Walk: t, u, v, prim and each lane's
+def test_v3_twin_matches_numpy_walk(case, any_hit, name):
+    """The twins of the three legacy kernels on v3's walk against
+    NumpyV3Walk with each kernel's rule: t, u, v, prim and each lane's
     triangle and box tests equal, on 48 of the JAX tests' rays through the
     subdiv=3 scene (21 clusters) and on 40 lanes of the synthetic scene
     of CHUNK_M clusters, whose walks go through two chunks."""
+    module, rule = RULES[name]
     if case == "scene":
         scene_np = build_demo_scene(subdiv=3)[0]
         tris, aabb = scene_np["dense_tris"], scene_np["dense_cluster_aabb"]
@@ -352,11 +421,14 @@ def test_v3_twin_matches_numpy_walk(case, any_hit):
     else:
         tris, aabb = chunk_tris()
         rays = chunk_rays(40)
-    want = NumpyV3Walk(tris, aabb).walk(*rays, any_hit)
-    got = dense_v3._walk_ref(torch.from_numpy(tris), torch.from_numpy(aabb),
-                             *dense_curve.clamped_rays(
-                                 *map(torch.from_numpy, rays)),
-                             any_hit=any_hit, counts=True)
+    want = NumpyV3Walk(tris, aabb, **rule).walk(
+        *rays, any_hit and name != "v1")
+    if name == "v1":  # its miss's t is INF
+        want["t"] = np.where(want["prim"] >= 0, want["t"], F(INF))
+    got = module._walk_ref(torch.from_numpy(tris), torch.from_numpy(aabb),
+                           *dense_curve.clamped_rays(
+                               *map(torch.from_numpy, rays)),
+                           any_hit=any_hit, counts=True)
     for x, key in zip(got, ("t", "u", "v", "prim", "work")):
         np.testing.assert_array_equal(x.numpy(), want[key], err_msg=key)
     hit = want["prim"] >= 0
@@ -497,10 +569,10 @@ def test_render_through_legacy_backend(backend):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("name", list(KERNELS))
 def test_cuda_kernel_matches_plain(name):
-    """Each kernel against its plain version on the card, on the subdiv=3
-    scene (21 clusters): same ops, no FMA contraction, IEEE division, the
-    same group decisions -> t, u, v and prim bit-equal, closest and
-    any-hit, at 1500 and 65536 lanes; one launch per call."""
+    """Each kernel against its twin on the card, on the subdiv=3 scene
+    (21 clusters): same ops, no FMA contraction, IEEE division, each
+    lane's clusters in the same order -> t, u, v and prim bit-equal,
+    closest and any-hit, at 1500 and 65536 lanes; one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the legacy kernels are CUDA-only)")
     fn, ref_fn, _, kw = KERNELS[name]
@@ -523,17 +595,19 @@ def test_cuda_kernel_matches_plain(name):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-def test_cuda_v3_walks_chunks(any_hit):
-    """The v3 kernel vs its twin on the synthetic scene of CHUNK_M
+@pytest.mark.parametrize("name", list(RULES))
+def test_cuda_legacy_walks_chunks(name, any_hit):
+    """Each legacy kernel vs its twin on the synthetic scene of CHUNK_M
     clusters (two chunks of a lane's list), 2048 lanes: t, u, v, prim
     bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the legacy kernels are CUDA-only)")
+    module = RULES[name][0]
     tris, aabb = (torch.from_numpy(x).cuda() for x in chunk_tris())
     rays = dense_curve.clamped_rays(*(torch.from_numpy(r).cuda()
                                       for r in chunk_rays(2048)))
-    got = dense_v3._walk_cuda(tris, aabb, *rays, any_hit=any_hit)
-    ref = dense_v3._walk_ref(tris, aabb, *rays, any_hit=any_hit)
+    got = module._walk_cuda(tris, aabb, *rays, any_hit=any_hit)
+    ref = module._walk_ref(tris, aabb, *rays, any_hit=any_hit)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
