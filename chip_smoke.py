@@ -38,19 +38,28 @@ phase 4 checks small renders on the card against the same renders on the
 CPU (the instanced one on a 16-instance cut of its scene,
 PARITY_INSTANCED; the file scene through both legacy backends); phase 5
 renders each path with every launch counter set to 0 just before and
-read just after. Exits
-non-zero, printing no result, on any failure or without a CUDA card. The
-last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+read just after; phase 6 drives the user's entry points on the
+cornellbox (`entry_phase`): the CLI's `demo` at 512x512x8 with the auto
+k_volume (PNG checked), `render_scan` at 256x256x4, k_volume 3, with
+its launches counted (dense_v4 dual and any-hit, dense_v5 dual and
+closest) and held against `render`, `render_scan` card vs CPU at
+32x32x2, and a `ProgressiveRenderer` at 512x512 behind a
+`PreviewServer` (each pass against `render_sample`, the average of 3
+against `render_scan`, an HTTP edit, the served PNG, a checkpoint round
+trip). Exits non-zero, printing no result, on any failure or without a
+CUDA card. The last lines are the kernels' JSON record, the card's name
+and power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -73,6 +82,9 @@ FILE_FACES = 2572  # build_demo_scene(subdiv=3): 5 walls, light, 2 bodies
 PARITY_INSTANCED = dict(side=4, subdivs=(2, 1))
 DENSE_TUFT = 8192  # strands of the dense tuft that times dense_curve
 N_PLAIN_TUFT = 4096  # rays the twin checks on it (its time bound)
+CLI_SIZE = 512  # phase 6's CLI demo: the CLI's default width
+SCAN_SIZE, SCAN_SPP = 256, 4  # phase 6's render_scan: 65536 lanes
+PROGRESSIVE_SIZE = 512  # phase 6's progressive renderer and preview server
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
 N_SINGLE = 24576  # default volume window (3/8 of the lanes): substeps 2-3
 RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
@@ -1012,13 +1024,15 @@ def legacy_phase(modules, scene, path_rays_, card):
     return rec
 
 
-def render_parity(name, scene_np, scene, **kw):
+def render_parity(name, scene_np, scene, fn=None, **kw):
+    """`fn` (default `integrator.render`) on the card against the same
+    call on the CPU, in the band of PERF.md section 2."""
     from pbrlab_tpu_torch.render.integrator import render
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
 
-    img_gpu = render(scene, seed=SEED, **kw).cpu().numpy()
-    img_cpu = render(scene_from_numpy(scene_np, "cpu"), seed=SEED,
-                     **kw).numpy()
+    fn = fn or render
+    img_gpu = fn(scene, seed=SEED, **kw).cpu().numpy()
+    img_cpu = fn(scene_from_numpy(scene_np, "cpu"), seed=SEED, **kw).numpy()
     close = np.isclose(img_gpu, img_cpu, rtol=1e-3, atol=1e-4).mean()
     rel_mean = abs(img_gpu.mean() - img_cpu.mean()) / img_cpu.mean()
     print(f"render parity {name} {kw['width']}x{kw['height']}x{kw['spp']}: "
@@ -1030,6 +1044,189 @@ def render_parity(name, scene_np, scene, **kw):
             and rel_mean <= 1e-3):
         raise AssertionError(f"render of {name} on the card disagrees with "
                              "the CPU")
+
+
+def png_pixels(data):
+    """The [H, W, 3] pixels of an 8-bit RGB PNG whose rows all carry
+    filter type 0 (what `io.image.encode_png` writes), every chunk's CRC
+    checked; raises on anything else."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("no PNG signature")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) != crc:
+            raise AssertionError(f"PNG chunk {kind} fails its CRC")
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = ihdr[:2]
+    if ihdr[2:] != (8, 2, 0, 0, 0):
+        raise AssertionError(f"PNG is not 8-bit RGB: IHDR {ihdr}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError("PNG rows carry filters")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def entry_phase(counters, scene_np, scene, names, card):
+    """Phase 6: the user's entry points on the headline scene at seed 7,
+    max_steps 12: the CLI's demo at 512x512x8 with the auto k_volume;
+    `render_scan` at 256x256x4, k_volume 3, with its launches counted and
+    against `render`; `render_scan` card vs CPU at 32x32x2; a
+    `ProgressiveRenderer` at 512x512 behind a `PreviewServer`: each pass
+    against `render_sample`, the 3-pass average against `render_scan`, an
+    HTTP edit, the served PNG and a checkpoint round trip, all on the
+    scene's device. Returns the scan's launch counts."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from pbrlab_tpu_torch.app import cli
+    from pbrlab_tpu_torch.app.viewer import PreviewServer
+    from pbrlab_tpu_torch.render.integrator import (render, render_sample,
+                                                    render_scan)
+    from pbrlab_tpu_torch.render.progressive import ProgressiveRenderer
+    from pbrlab_tpu_torch.utils import log as plog
+    from pbrlab_tpu_torch.utils.profiling import measure_sss_truncation
+
+    steps = dict(max_steps=12)
+    dev = scene["aabb_min"].device.type
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    plog.get_logger()  # its handler keeps the real stderr
+    with tempfile.TemporaryDirectory(prefix="entry_", dir=build) as tmp:
+        out = os.path.join(tmp, "demo.png")
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["demo", "--width", str(CLI_SIZE), "--height",
+                           str(CLI_SIZE), "--spp", "8", "--max-steps", "12",
+                           "--k-volume", "-1", "--device", dev, "--out",
+                           out])
+        wall = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            data = f.read()
+    for line in err.getvalue().splitlines():
+        print(f"  cli: {line}")
+    k = int(next(line.split()[1] for line in err.getvalue().splitlines()
+                 if line.startswith("k_volume:")))
+    frac = measure_sss_truncation(scene_np, 12, k_volume=k, device=dev)
+    pix = png_pixels(data)
+    print(f"entry cli: demo {CLI_SIZE}x{CLI_SIZE}x8 max_steps=12 "
+          f"--k-volume -1 -> "
+          f"k_volume {k} ({frac * 100:.2f}% of the 96x96 probe's SSS walks "
+          f"truncated), rc {rc}, wall {wall:.3f} s (probe, render, PNG), "
+          f"PNG {len(data)} bytes {pix.shape[1]}x{pix.shape[0]}, pixels "
+          f"{pix.min()}-{pix.max()} ({card})")
+    if rc != 0 or pix.shape != (CLI_SIZE, CLI_SIZE, 3) \
+            or pix.min() == pix.max():
+        raise AssertionError("the CLI demo did not write its image")
+
+    for c in counters.values():
+        for key in c:
+            c[key] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan = render_scan(scene, SCAN_SIZE, SCAN_SIZE, SCAN_SPP, seed=SEED,
+                       k_volume=3, **steps).cpu().numpy()
+    scan_wall = time.perf_counter() - t0
+    launches = {"v4.dual": counters["v4"]["dual"],
+                "v4.single": counters["v4"]["single"],
+                "v5.v5_dual": counters["v5"]["v5_dual"],
+                "v5.v5": counters["v5"]["v5"]}
+    counts = {f"{m}.{key}": v for m, c in counters.items()
+              for key, v in c.items()}
+    t0 = time.perf_counter()
+    img = render(scene, SCAN_SIZE, SCAN_SIZE, SCAN_SPP, seed=SEED,
+                 k_volume=3, **steps).cpu().numpy()
+    render_wall = time.perf_counter() - t0
+    equal = (scan == img).mean()
+    print(f"entry scan: render_scan {SCAN_SIZE}x{SCAN_SIZE}x{SCAN_SPP} "
+          f"k_volume=3 in {scan_wall:.3f} s, launches {counts}; render "
+          f"(persistent lanes) in {render_wall:.3f} s; "
+          f"{equal * 100:.4f}% of values bit-equal, max |diff| "
+          f"{np.abs(scan - img).max():.3g}, mean {scan.mean():.5f} ({card})")
+    if not all(launches.values()):
+        raise AssertionError(f"the scan path missed a kernel: {counts}")
+    if not (np.isfinite(scan).all() and scan.mean() > 0):
+        raise AssertionError("the scan image is not finite and lit")
+    if equal < 1.0:
+        close = np.isclose(scan, img, rtol=1e-3, atol=1e-4).mean()
+        rel = abs(scan.mean() - img.mean()) / img.mean()
+        differ = scan != img
+        largest = np.maximum(np.abs(scan), np.abs(img))[differ].max()
+        print(f"entry scan: not bit-equal; {close * 100:.2f}% within rtol "
+              f"1e-3/atol 1e-4, mean rel diff {rel:.3g}; {differ.sum()} "
+              f"values differ, the largest of them {largest:.3g} (float32 "
+              f"normals start at {np.finfo(np.float32).tiny:.3g})")
+        if close < 0.99 or rel > 1e-3:
+            raise AssertionError("render_scan disagrees with render")
+    render_parity("cornellbox render_scan", scene_np, scene, fn=render_scan,
+                  width=32, height=32, spp=2, k_volume=3, **steps)
+
+    size = PROGRESSIVE_SIZE
+    kw = dict(seed=SEED, k_volume=3, **steps)
+    r = ProgressiveRenderer(scene, size, size, material_names=names, **kw)
+    srv = PreviewServer(r, max_pass=8)
+    port = srv.start(port=0)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        t0 = time.perf_counter()
+        for i in range(3):
+            prev = r.accum.copy()
+            r.step()
+            ref = render_sample(scene, size, size, i, **kw).cpu().numpy()
+            if i == 0:  # the accumulator holds the pass itself
+                same = np.array_equal(r.accum, ref)
+            else:  # a fresh renderer resumed at pass i renders pass i
+                r1 = ProgressiveRenderer(scene, size, size, **kw)
+                r1.num_passes = i
+                r1.step()
+                same = (np.array_equal(r1.accum, ref)
+                        and np.array_equal(r.accum, prev + ref))
+            if not same:
+                raise AssertionError(f"progressive pass {i} is not "
+                                     f"render_sample(sample_id={i})")
+        avg = r.average()
+        want = render_scan(scene, size, size, 3, **kw).cpu().numpy()
+        if not np.array_equal(avg, want):
+            raise AssertionError("3 progressive passes are not "
+                                 "render_scan(spp=3)")
+        urllib.request.urlopen(urllib.request.Request(
+            base + "/edit", data=json.dumps(
+                {"material": "Wall_White", "param": "base_color",
+                 "value": [0.1, 0.9, 0.1]}).encode(), method="POST"),
+            timeout=30).read()
+        edited = r.step()
+        if r.num_passes != 1 or np.array_equal(edited, avg):
+            raise AssertionError("the HTTP edit did not reset the passes "
+                                 "and change the image")
+        served = png_pixels(urllib.request.urlopen(base + "/image.png",
+                                                   timeout=30).read())
+        if served.shape != (size, size, 3):
+            raise AssertionError(f"served PNG is {served.shape}")
+        ckpt = os.path.join(build, "entry_checkpoint.npz")
+        r.save_checkpoint(ckpt)
+        r2 = ProgressiveRenderer(scene, size, size, **kw)
+        r2.load_checkpoint(ckpt)
+        os.remove(ckpt)
+        if not (r2.num_passes == 1 and np.array_equal(r2.accum, r.accum)):
+            raise AssertionError("checkpoint round trip failed")
+        wall = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    print(f"entry progressive: {size}x{size} k_volume=3, 3 passes each "
+          f"bit-equal to render_sample, their average bit-equal to "
+          f"render_scan(spp=3), an HTTP /edit reset to pass 1 with a new "
+          f"image, /image.png {size}x{size}, checkpoint round trip; "
+          f"pass times {[round(t, 3) for t in r.pass_times]} s; phase "
+          f"wall {wall:.3f} s ({card})")
+    return launches
 
 
 def main():
@@ -1061,7 +1258,7 @@ def main():
             print("  ptxas:", line.strip())
 
     # the five paths' scenes (commit on the host, tables to the card)
-    scenes_np, scenes = {}, {}
+    scenes_np, scenes, names = {}, {}, {}
     for name, (kw, _, _) in PATHS.items():
         t0 = time.perf_counter()
         if kw is None:
@@ -1070,7 +1267,8 @@ def main():
             print(f"scene {name}: {instanced_summary(scenes_np[name])}, "
                   f"built in {time.perf_counter() - t0:.2f} s")
             continue
-        scenes_np[name] = build_demo_scene(**kw)[0]
+        scenes_np[name], builder = build_demo_scene(**kw)
+        names[name] = list(builder.materials.names)
         scenes[name] = scene_from_numpy(scenes_np[name], dev)
         s = scenes_np[name]
         print(f"scene {name} {kw}: {int((s['face_area'] > 0).sum())} "
@@ -1176,6 +1374,13 @@ def main():
                            for k in counters[m]):
             raise AssertionError(f"{name}: a trace left the forced "
                                  f"backend: {counts}")
+    print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s")
+
+    # phase 6: the entry points (CLI, scan path, progressive + server)
+    t0 = time.perf_counter()
+    scan = entry_phase(counters, scenes_np["cornellbox"],
+                       scenes["cornellbox"], names["cornellbox"], card)
+    print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases took {time.perf_counter() - t_start:.1f} s")
     # v1 is on no render path, in JAX as here: its row carries the launches
     # that phase 5's renders made, which must be none
@@ -1224,12 +1429,20 @@ def main():
         for name, src, rep, n, r in rows]}
     sparse = {name: all_counts[name]["v5.v5"]
               for name in ("cornellbox", "hair")}
-    v5_row = next(k for k in record["kernels"]
-                  if k["name"] == "dense_v5_trace")
-    v5_row["note"] = (
+    row = {k["name"]: k for k in record["kernels"]}
+    row["dense_v5_trace"]["note"] = (
         f"launches: the mid path's; the unwindowed volume substeps of the "
         f"dense4 scenes add {sparse['cornellbox']} (cornellbox) and "
         f"{sparse['hair']} (hair)")
+    scan_rows = {"dense_v4_trace_dual": "v4.dual",
+                 "dense_v4_trace": "v4.single",
+                 "dense_v5_trace_dual": "v5.v5_dual",
+                 "dense_v5_trace": "v5.v5"}
+    for name, key in scan_rows.items():
+        note = row[name].get("note")
+        row[name]["note"] = ((note + "; " if note else "") + (
+            f"the scan path (render_scan {SCAN_SIZE}x{SCAN_SIZE}x{SCAN_SPP}"
+            f", k_volume 3, phase 6) launched it {scan[key]} times"))
     record["kernels"][-1]["note"] = (
         "on no render path (the JAX package reaches it only from "
         "tests/test_dense.py); launched in phase 3 only")

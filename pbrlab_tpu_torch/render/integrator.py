@@ -1,6 +1,6 @@
-"""Wavefront path-tracing integrator, forward render (port of
-pbrlab_tpu.render.integrator: `wavefront_step`, `render_lanes_wavefront`,
-`render`).
+"""Wavefront path-tracing integrator (port of pbrlab_tpu.render.integrator:
+`wavefront_step`, the persistent-lane `render_lanes_wavefront` / `render`,
+and the scan path `render_lanes` / `render_sample` / `render_scan`).
 
 One SoA `PathState` of N lanes; every `wavefront_step` advances each lane
 by one trace: a surface bounce, or one step of the random-walk SSS
@@ -10,10 +10,20 @@ dense_v4 or dense_v5 kernel; a second launch on the large-scene backends).
 RNG streams are per lane and counter-seeded, so a
 lane's result does not depend on where it sits in the wavefront.
 
-The JAX package's `lax.while_loop` / `lax.cond` are Python control flow
-here. The loop test and the volume-window test read a device value, one
-host sync each per trip. Everything runs under `torch.no_grad()`: the
-render is forward-only, as the JAX package stop-gradients every trace.
+The JAX package's `lax.while_loop` / `lax.scan` / `lax.cond` are Python
+control flow here. The loop test, the volume-window test and the scan's
+"any lane in volume mode" test read a device value, one host sync each
+per trip. Everything runs under `torch.no_grad()`: the render is
+forward-only, as the JAX package stop-gradients every trace.
+
+The scan path renders one sample of every pixel per `render_lanes` call:
+`max_steps` full steps, each followed by `k_volume` unwindowed volume
+substeps while a lane walks, the compaction every `sort_every` steps, and
+one any-hit trace for the last step's deferred NEE. `render_scan` sums
+`render_sample` over the samples in order; per lane the work is the
+wavefront's, so `render_scan` and `render` give the same image: to the
+bit on the CPU, and on CUDA but for denormal sums, which the
+framebuffer's atomic adds (`index_add_`) flush to zero.
 
 Hair: a lane whose closest hit is a curve with a hair material shades in
 the hair frame (tangent, ribbon offset h) with the Principled Hair BSDF
@@ -31,9 +41,10 @@ PBRLAB_TRACE_BACKEND knob: "dense4", "dense5", "dense5l", "dense5s",
 "dense5i", or a legacy one, "dense3" (dense_v3) or "dense" / "dense2"
 (dense_v2), whose tables every `commit` adds.
 
-Not in this slice: the differentiable scan path (`render_lanes`,
-`render_scan`), sharding, and the JAX package's other PBRLAB_*
-environment knobs (ROADMAP A9, A15, A16).
+Still missing: gradients through `render_lanes` (the JAX package's
+`remat` and its stop-gradient sites; ROADMAP A9b) and the parallel
+modules with the wavefront's `lane` slice (A16). The JAX package's other
+PBRLAB_* environment knobs are not ported (A17).
 """
 from __future__ import annotations
 
@@ -48,8 +59,8 @@ from ..core.onb import branchless_onb, to_global, to_local
 from ..core.sampling import (cosine_sample_hemisphere, power_heuristic_weight,
                              uniform_sample_sphere)
 from ..ops.dense_v4 import slab_interval
-from ..ops.intersect import (has_curves, sparse_backend, trace_scene,
-                             trace_scene_dual)
+from ..ops.intersect import (has_curves, occluded_scene, sparse_backend,
+                             trace_scene, trace_scene_dual)
 from ..scene.lights import sample_all_light
 from ..scene.materials import KIND_HAIR, unpack_material_rows
 from ..scene.scene import build_fat_tables
@@ -155,6 +166,13 @@ def compact_packed(packed: torch.Tensor, scene) -> torch.Tensor:
     mode = packed[:, 17].to(torch.int64)
     primary = torch.where(packed[:, 15] > 0.5, 1 - mode, 2 + mode)
     return packed[torch.argsort((primary << 29) | sig, stable=True)]
+
+
+def compact_state(state: PathState, scene) -> PathState:
+    """`compact_packed` on a PathState: the JAX package's compact_state
+    permutation (key (primary << 29) | signature, stable argsort), every
+    field carried through one gather of the packed rows."""
+    return unpack_state(compact_packed(pack_state(state), scene))
 
 
 def _classify(direction, ng, ns):
@@ -548,8 +566,12 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
 
 
 def init_state(scene, width: int, height: int, sample_id, seed,
-               lane) -> PathState:
-    """Fresh camera paths for pixel ids `lane` [N] int32."""
+               lane=None) -> PathState:
+    """Fresh camera paths for pixel ids `lane` [N] int32; None takes every
+    pixel, arange(width * height) on the scene's device."""
+    if lane is None:
+        lane = torch.arange(width * height, dtype=torch.int32,
+                            device=scene["aabb_min"].device)
     n = lane.shape[0]
     dev = lane.device
     rng_state = prng.seed_state(lane, sample_id, seed)
@@ -574,6 +596,51 @@ def init_state(scene, width: int, height: int, sample_id, seed,
         depth=torch.zeros((n,), dtype=i32, device=dev),
         nee_dir=f3, nee_contrib=f3,
         nee_maxt=torch.full((n,), -1.0, device=dev))
+
+
+@torch.no_grad()
+def render_lanes(scene, width: int, height: int, sample_id, seed=0,
+                 max_steps: int = 32, lane=None, sort_every: int = 2,
+                 k_volume: int = 0, tri_backend: str | None = None):
+    """One sample for pixel ids `lane` (None: every pixel) -> radiance
+    [n_lanes, 3] in lane order.
+
+    `max_steps` full steps; after each, while a lane is alive in volume
+    mode, `k_volume` volume-only substeps (unwindowed, so they trace
+    through `sparse_backend`), giving a walk a (1 + k_volume) * max_steps
+    budget like the reference's inner loop (random-walk-sss.h:281). With
+    sort_every > 0 the lanes are compacted after every sort_every-th step
+    and scattered back at the end (the same bits, per-lane RNG). A lane
+    still alive after max_steps stops where it is. The last step's
+    deferred NEE is answered by one any-hit trace. `tri_backend` forces
+    the triangle backend (see `wavefront_step`)."""
+    if "mat_fat" not in scene:
+        scene = build_fat_tables(scene)
+    state = init_state(scene, width, height, sample_id, seed, lane)
+    n = state.org.shape[0]
+    for depth in range(max_steps):
+        state = wavefront_step(scene, state, tri_backend=tri_backend)
+        if k_volume and bool(  # host sync: skip when no lane walks
+                (state.alive & (state.mode == MODE_VOLUME)).any()):
+            for i in range(k_volume):
+                state = wavefront_step(scene, state, freeze_surface=True,
+                                       resolve_pending=(i == 0),
+                                       tri_backend=tri_backend)
+        if sort_every and (depth + 1) % sort_every == 0:
+            state = compact_state(state, scene)
+    nee_active = state.nee_maxt >= 0.0
+    occ = occluded_scene(
+        scene, state.org, state.nee_dir,
+        torch.full((n,), EPS, device=state.org.device),
+        torch.where(nee_active, state.nee_maxt, -1.0), backend=tri_backend)
+    contribution = state.contribution + torch.where(
+        (nee_active & ~occ)[..., None], state.nee_contrib, 0.0)
+    contribution = torch.where(torch.isfinite(contribution), contribution,
+                               0.0)
+    if sort_every:  # back to lane order
+        contribution = torch.zeros_like(contribution).index_copy_(
+            0, state.lane.to(torch.int64), contribution)
+    return contribution
 
 
 @torch.no_grad()
@@ -755,4 +822,73 @@ def render(scene, width: int, height: int, spp: int, seed=0,
     total = render_lanes_wavefront(scene, width, height, spp, seed,
                                    max_steps, k_volume=k_volume,
                                    tri_backend=tri_backend, **kwargs)
-    return total.reshape(height, width, 3) / spp
+    return _mean(total.reshape(height, width, 3), spp)
+
+
+def _mean(total, spp: int):
+    """total / spp, the IEEE quotient on every device, as numpy's (the
+    progressive renderer's average). The divisor is a tensor: on CUDA,
+    torch computes a tensor over a Python number as a product with the
+    number's reciprocal, an ulp off on some values."""
+    return total / torch.tensor(float(spp), device=total.device)
+
+
+def scene_has_sss(scene) -> bool:
+    """Any material with subsurface weight > 0 (numpy or torch scene):
+    k_volume substeps can only matter there."""
+    sub = scene.get("materials", {}).get("subsurface")
+    return sub is not None and bool((sub > 0.0).any())
+
+
+def auto_k_volume(scene_np, max_steps: int = 32, cap: int = 12,
+                  probe: int = 96, device=None) -> int:
+    """The CLI's rule for the SSS walk budget: 0 without SSS; else start
+    at 3 and double (up to `cap`) until fewer than 8% of the probed walks
+    are truncated (`utils.profiling.measure_sss_truncation` on `device`,
+    None = CUDA); warn when the cap still truncates. The threshold is
+    docs/sss_truncation.md's: below ~10% truncated walks the radiance bias
+    measured <= ~0.3% even at 16x the demo medium's density."""
+    if not scene_has_sss(scene_np):
+        return 0
+    from ..utils.profiling import measure_sss_truncation
+
+    thresh = 0.08
+    k = 3
+    while True:
+        frac = measure_sss_truncation(scene_np, max_steps, k_volume=k,
+                                      probe=probe, device=device)
+        if frac < thresh or k >= cap:
+            break
+        k = min(cap, k * 2)
+    if frac >= thresh:
+        from ..utils import log as plog
+
+        plog.event(plog.get_logger("integrator"), "sss walk budget",
+                   level="warning", k_volume=k,
+                   truncated_pct=round(frac * 100, 2),
+                   hint="medium denser than the k_volume cap can cover; "
+                        "raise --k-volume or --max-steps")
+    return k
+
+
+def render_sample(scene, width: int, height: int, sample_id, seed=0,
+                  max_steps: int = 32, k_volume: int = 0):
+    """One sample per pixel -> radiance [H, W, 3] (linear)."""
+    contribution = render_lanes(scene, width, height, sample_id, seed,
+                                max_steps, k_volume=k_volume)
+    return contribution.reshape(height, width, 3)
+
+
+def render_scan(scene, width: int, height: int, spp: int, seed=0,
+                max_steps: int = 32, k_volume: int = 0):
+    """spp independent `render_sample` passes summed in order 0..spp-1,
+    then divided by spp (the reference's pass loop,
+    render-layer.h:11-26); `render` is the same image from the
+    persistent lanes."""
+    if "mat_fat" not in scene:
+        scene = build_fat_tables(scene)
+    acc = torch.zeros((height, width, 3), device=scene["mat_fat"].device)
+    for sample_id in range(spp):
+        acc = acc + render_sample(scene, width, height, sample_id, seed,
+                                  max_steps, k_volume)
+    return _mean(acc, spp)

@@ -108,6 +108,10 @@ class MaterialBuilder:
         return table
 
 
+def lookup(name_list: List[str], name: str) -> int:
+    return name_list.index(name)
+
+
 _FAT_ORDER = (
     [("kind", 1), ("base_color_tex_id", 1), ("subsurface_color_tex_id", 1)]
     + [(k, w) for k, _, w in ALL_COLUMNS]

@@ -392,6 +392,17 @@ def scene_from_numpy(scene_np: Dict, device) -> Dict:
     return out
 
 
+def scene_to_device(scene_np: Dict, device=None) -> Dict:
+    """`scene_from_numpy` on `device`; None means CUDA. Without a CUDA
+    device a CUDA placement raises: the scene never lands on the CPU
+    unless the caller asks for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to place the "
+                           "scene on the CPU")
+    return scene_from_numpy(scene_np, device)
+
+
 def build_fat_tables(scene: Dict) -> Dict:
     """Pack per-face / material / emissive-face data into fat row matrices
     on the scene's device, so a lane fetches each with one row gather.
