@@ -85,6 +85,16 @@ N_PLAIN_TUFT = 4096  # rays the twin checks on it (its time bound)
 CLI_SIZE = 512  # phase 6's CLI demo: the CLI's default width
 SCAN_SIZE, SCAN_SPP = 256, 4  # phase 6's render_scan: 65536 lanes
 PROGRESSIVE_SIZE = 512  # phase 6's progressive renderer and preview server
+# phase 7: the gradient pass at BASELINE config 5's resolution, one
+# sample; its card-vs-CPU and finite-difference checks; the sharded render,
+# the train step and the two-rank render
+GRAD_SIZE = 1024
+GRAD_PARITY = dict(size=32, max_steps=6)  # card vs CPU gradients
+GRAD_BAND = 1e-4  # of the largest CPU entry (tests/test_torch_gradients.py)
+FD_SIZE, FD_EPS = 64, 1e-2  # emission central differences, rtol 1e-2
+SHARD_SIZE, SHARD_SPP = 256, 2  # render_sharded on 2 shards of the card
+TRAIN_SIZE, TRAIN_STEPS = 64, 4  # train step on the textured quad scene
+DIST_SIZE, DIST_SPP = 128, 2  # two ranks on the card, gloo
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
 N_SINGLE = 24576  # default volume window (3/8 of the lanes): substeps 2-3
 RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
@@ -1229,11 +1239,305 @@ def entry_phase(counters, scene_np, scene, names, card):
     return launches
 
 
+def textured_quad_scene():
+    """An emissive quad over a floor quad textured with a 4x4 ramp
+    (tests/torch_scenes.py `textured_scene`, the JAX package's
+    tests/test_gradients.py:121-150), committed by the port."""
+    from pbrlab_tpu_torch.geometry.mesh import TriangleMesh
+    from pbrlab_tpu_torch.scene.scene import SceneBuilder, commit
+
+    b = SceneBuilder()
+    tex = np.zeros((4, 4, 3), np.float32)
+    tex[:, :, 0] = np.linspace(0.2, 0.9, 4)[None, :]
+    tex[:, :, 1] = 0.5
+    tex[:, :, 2] = np.linspace(0.9, 0.2, 4)[:, None]
+    mat = b.materials.add_principled(
+        "floor", base_color_tex_id=b.add_texture(tex, "checker"),
+        roughness=0.8)
+    lmat = b.materials.add_principled("light", base_color=(0.0, 0.0, 0.0))
+    faces = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
+
+    def quad(y, s, m):
+        verts = np.asarray([[-s, y, -s], [s, y, -s], [s, y, s], [-s, y, s]],
+                           np.float32)
+        uv = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+        return TriangleMesh(verts, faces,
+                            material_ids=np.full((2,), m, np.int32),
+                            texcoords=uv, texcoord_idx=faces)
+
+    lid = b.add_area_light_param((6.0, 6.0, 6.0))
+    b.add_instance([quad(0.0, 1.0, mat), quad(1.5, 0.5, lmat)],
+                   light_ids=[None, np.full((2,), lid, np.int32)])
+    return commit(b.build())
+
+
+def with_leaves(scene):
+    """(scene copy, {key: leaf}): the train step's eight leaves (six
+    material columns, face_emission, texture_atlas) as fresh tensors that
+    require grad. The scene has no fat tables: `render_lanes` builds them
+    from the leaves."""
+    from pbrlab_tpu_torch.parallel.sharding import GRAD_KEYS, SCENE_KEYS
+
+    s = dict(scene)
+    mats = s["materials"] = dict(scene["materials"])
+    leaves = {}
+    for key in GRAD_KEYS + SCENE_KEYS:
+        src = mats if key in mats else s
+        leaves[key] = src[key] = src[key].detach().clone().requires_grad_()
+    return s, leaves
+
+
+def grad_pass(scene, size, max_steps, k_volume, counters=None):
+    """The MSE of `render_lanes(remat=True)` (size^2, one sample, seed 7)
+    against the same render at base_color x 0.5, and its backward to the
+    eight leaves. Returns ({key: gradient or None}, forward wall,
+    backward wall, forward launch counts, launch counts after the
+    backward); the counts when `counters` is given."""
+    from pbrlab_tpu_torch.render.integrator import render_lanes
+
+    dev = scene["aabb_min"].device
+    kw = dict(max_steps=max_steps, k_volume=k_volume)
+    dim = dict(scene)
+    dim["materials"] = {**scene["materials"], "base_color":
+                        scene["materials"]["base_color"] * 0.5}
+    with torch.no_grad():
+        target = render_lanes(dim, size, size, 0, SEED, **kw)
+    s, leaves = with_leaves(scene)
+
+    def counts():
+        return {f"{m}.{k}": v for m, c in (counters or {}).items()
+                for k, v in c.items()}
+
+    for c in (counters or {}).values():
+        for key in c:
+            c[key] = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    img = render_lanes(s, size, size, 0, SEED, remat=True, **kw)
+    loss = ((img - target) ** 2).mean()
+    sync(dev)
+    fwd = time.perf_counter() - t0
+    fwd_counts = counts()
+    t0 = time.perf_counter()
+    loss.backward()
+    sync(dev)
+    bwd = time.perf_counter() - t0
+    return ({k: None if v.grad is None else v.grad.detach()
+             for k, v in leaves.items()}, fwd, bwd, fwd_counts, counts())
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def images_agree(name, got, want, card):
+    """Bit-equal but for denormal sums (the framebuffer's index_add_
+    flushes them on CUDA, PERF.md section 6), else raise."""
+    differ = got != want
+    largest = (np.maximum(np.abs(got), np.abs(want))[differ].max()
+               if differ.any() else 0.0)
+    print(f"{name}: {(~differ).mean() * 100:.4f}% of values bit-equal, "
+          f"{differ.sum()} differ, the largest of them {largest:.3g}, mean "
+          f"{want.mean():.5f} ({card})")
+    if not (np.isfinite(got).all() and want.mean() > 0
+            and largest < np.finfo(np.float32).tiny):
+        raise AssertionError(f"{name} differs beyond denormals")
+
+
+def training_phase(counters, scene_np, scene, card):
+    """Phase 7: the gradient pass of the cornellbox at GRAD_SIZE^2 x 1
+    (`render_lanes(remat=True)`, max_steps 12, k_volume 3) with its
+    walls, peak memory and launches forward and after the backward; its
+    gradients on the card against the CPU at 32^2; the emission gradient
+    against central differences at 64^2; `render_sharded` on two shards
+    of the card against `render`; four train steps on the textured quad
+    scene over two shards; two ranks on the card (gloo) against `render`.
+    Returns the gradient pass's launch counts after the backward."""
+    from pbrlab_tpu_torch.parallel import sharding
+    from pbrlab_tpu_torch.render.integrator import render, render_sample
+    from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+
+    dev = scene["aabb_min"].device
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    grads, fwd, bwd, fwd_counts, counts = grad_pass(
+        scene, GRAD_SIZE, counters=counters, **SETTINGS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    norms = {k: None if g is None else float(g.abs().max())
+             for k, g in grads.items()}
+    print(f"grad pass: render_lanes(remat=True) {GRAD_SIZE}x{GRAD_SIZE}x1 "
+          f"max_steps={SETTINGS['max_steps']} k_volume="
+          f"{SETTINGS['k_volume']}, MSE to base_color x 0.5: forward "
+          f"{fwd:.3f} s, backward {bwd:.3f} s, peak allocated "
+          f"{peak / 2**30:.3f} GiB ({(peak - base_mem) / 2**30:.3f} GiB above "
+          f"the {base_mem / 2**30:.3f} GiB of the scenes), launches forward "
+          f"{fwd_counts}, after the backward {counts}; max |grad| {norms} "
+          f"({card})")
+    bad = [k for k, g in grads.items()
+           if g is not None and not torch.isfinite(g).all()]
+    if bad or not norms["base_color"] or not norms["face_emission"]:
+        raise AssertionError(f"gradients not finite ({bad}) or zero: {norms}")
+    if counts["v4.dual"] != 2 * fwd_counts["v4.dual"]:
+        raise AssertionError(f"the recompute did not relaunch dense_v4 dual "
+                             f"once a depth: {fwd_counts} -> {counts}")
+    if not all(counts[k] for k in ("v4.dual", "v4.single", "v5.v5_dual",
+                                   "v5.v5")):
+        raise AssertionError(f"the gradient pass missed a kernel: {counts}")
+
+    t0 = time.perf_counter()
+    size, steps = GRAD_PARITY["size"], GRAD_PARITY["max_steps"]
+    gpu = grad_pass(scene, size, steps, SETTINGS["k_volume"])[0]
+    cpu = grad_pass(scene_from_numpy(scene_np, "cpu"), size, steps,
+                    SETTINGS["k_volume"])[0]
+    worst = {}
+    for key in gpu:
+        if gpu[key] is None or cpu[key] is None:
+            if (gpu[key] is None) != (cpu[key] is None):
+                raise AssertionError(f"{key}: read on one device only")
+            continue
+        g, c = gpu[key].cpu().numpy(), cpu[key].numpy()
+        scale = np.abs(c).max()
+        worst[key] = float(np.abs(g - c).max() / max(scale, 1e-30))
+        if not (np.abs(g - c) <= GRAD_BAND * scale + 1e-6).all():
+            raise AssertionError(f"{key} gradient: card vs CPU off the band "
+                                 f"(max |diff| / max |cpu| {worst[key]:.3g})")
+    print(f"grad parity: card vs CPU {size}x{size}x1 max_steps={steps}, max "
+          f"|diff| / max |cpu| per leaf {worst} (band {GRAD_BAND}), "
+          f"{time.perf_counter() - t0:.3f} s ({card})")
+
+    t0 = time.perf_counter()
+    kw = dict(seed=SEED, **SETTINGS)
+    x = torch.tensor(1.0, device=dev, requires_grad=True)
+
+    def fd_loss(scale):
+        s = {**scene, "face_emission": scene["face_emission"] * scale}
+        return render_sample(s, FD_SIZE, FD_SIZE, 0, **kw).sum()
+
+    g = float(torch.autograd.grad(fd_loss(x), [x])[0])
+    with torch.no_grad():
+        fd = (float(fd_loss(torch.tensor(1.0 + FD_EPS, device=dev)))
+              - float(fd_loss(torch.tensor(1.0 - FD_EPS, device=dev)))) / (
+                  2 * FD_EPS)
+    print(f"emission FD: {FD_SIZE}x{FD_SIZE}x1 d sum(img) / d scale: "
+          f"autograd {g:.6g}, central difference (eps {FD_EPS}) {fd:.6g}, "
+          f"rel diff {abs(g - fd) / abs(fd):.3g} (rtol 1e-2), "
+          f"{time.perf_counter() - t0:.3f} s ({card})")
+    if not (np.isfinite(g) and abs(g - fd) <= 1e-2 * abs(fd)):
+        raise AssertionError("emission gradient disagrees with FD")
+
+    mesh = sharding.make_mesh(2, dev.type)
+    t0 = time.perf_counter()
+    shard = sharding.render_sharded(scene, SHARD_SIZE, SHARD_SIZE, SHARD_SPP,
+                                    mesh, **kw).cpu().numpy()
+    wall = time.perf_counter() - t0
+    single = render(scene, SHARD_SIZE, SHARD_SIZE, SHARD_SPP,
+                    **kw).cpu().numpy()
+    images_agree(f"sharded render {SHARD_SIZE}x{SHARD_SIZE}x{SHARD_SPP} on "
+                 f"{mesh} in {wall:.3f} s vs render", shard, single, card)
+
+    t0 = time.perf_counter()
+    quad = scene_from_numpy(textured_quad_scene(), dev)
+    dim = {**quad, "texture_atlas": quad["texture_atlas"] * 0.5}
+    target = sharding.render_sharded(dim, TRAIN_SIZE, TRAIN_SIZE, 1, mesh,
+                                     max_steps=4)
+    # the loss sums squares over the pixels: the 8x8 test's lr of 0.2
+    # scaled to the pixel count keeps its step
+    step = sharding.train_step_builder(
+        TRAIN_SIZE, TRAIN_SIZE, 1, mesh, max_steps=4,
+        lr=0.2 * 64 / TRAIN_SIZE ** 2)
+    s, losses = quad, []
+    for _ in range(TRAIN_STEPS):
+        loss, s = step(s, target)
+        losses.append(float(loss))
+    moved = float((s["texture_atlas"] - quad["texture_atlas"]).abs().max())
+    print(f"train step: textured quad {TRAIN_SIZE}x{TRAIN_SIZE}x1 towards "
+          f"the atlas x 0.5, {TRAIN_STEPS} steps on {mesh}: losses {losses}, "
+          f"atlas moved {moved:.4g}, {time.perf_counter() - t0:.3f} s "
+          f"({card})")
+    if not (losses[-1] < 0.9 * losses[0] and moved > 1e-4):
+        raise AssertionError("the train step did not lower the loss")
+
+    t0 = time.perf_counter()
+    got = two_ranks(dev.type)
+    wall = time.perf_counter() - t0
+    want = render(scene, DIST_SIZE, DIST_SIZE, DIST_SPP, **kw).cpu().numpy()
+    images_agree(f"two ranks (gloo) render_distributed {DIST_SIZE}x"
+                 f"{DIST_SIZE}x{DIST_SPP} in {wall:.3f} s (processes "
+                 f"included) vs render", got, want, card)
+    return counts
+
+
+def two_ranks(device):
+    """render_distributed of the cornellbox by two processes of this
+    script on `device` (gloo); rank 0's image."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="ranks_", dir=build) as tmp:
+        out = os.path.join(tmp, "img.npy")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             "--port", str(port), "--device", device, "--out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} failed:\n{log}")
+        return np.load(out)
+
+
+def rank_main(argv):
+    """One rank of `two_ranks`: joins the gloo group on 127.0.0.1:port,
+    renders its half of the cornellbox with render_distributed on its
+    global_mesh device, rank 0 saves the image."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from pbrlab_tpu_torch.parallel.distributed import (global_mesh,
+                                                       init_distributed,
+                                                       render_distributed)
+    from pbrlab_tpu_torch.scene.demo import build_demo_scene
+
+    ap = argparse.ArgumentParser()
+    for name in ("--rank", "--port"):
+        ap.add_argument(name, type=int, required=True)
+    ap.add_argument("--device", required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    init_distributed(f"127.0.0.1:{args.port}", 2, args.rank, backend="gloo")
+    try:
+        scene_np, _ = build_demo_scene(**PATHS["cornellbox"][0])
+        img = render_distributed(scene_np, DIST_SIZE, DIST_SIZE, DIST_SPP,
+                                 mesh=global_mesh(args.device), seed=SEED,
+                                 **SETTINGS)
+        if args.rank == 0:
+            np.save(args.out, img)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if len(sys.argv) > 1:  # a rank of phase 7's two-rank render
+        return rank_main(sys.argv[1:])
     from pbrlab_tpu_torch.ops import (cuda_lib, dense, dense_curve, dense_v2,
                                       dense_v3, dense_v4, dense_v5, dense_v5i)
     from pbrlab_tpu_torch.render.integrator import render_lanes_wavefront
@@ -1381,6 +1685,12 @@ def main():
     scan = entry_phase(counters, scenes_np["cornellbox"],
                        scenes["cornellbox"], names["cornellbox"], card)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+
+    # phase 7: the training and parallel paths
+    t0 = time.perf_counter()
+    grad = training_phase(counters, scenes_np["cornellbox"],
+                          scenes["cornellbox"], card)
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases took {time.perf_counter() - t_start:.1f} s")
     # v1 is on no render path, in JAX as here: its row carries the launches
     # that phase 5's renders made, which must be none
@@ -1395,14 +1705,19 @@ def main():
     v4_py = "pbrlab_tpu/ops/pallas/dense_v4.py"
     v5_py = "pbrlab_tpu/ops/pallas/dense_v5.py"
     hair, inst = launches["hair"], launches["instanced"]
+    # the gradient pass's kernels (phase 7) add their forward and backward
+    # launches to the paths' counts
     rows = [("dense_v4_trace_dual", v4_src, f"{v4_py}:248",
-             launches["cornellbox"]["v4.dual"], rec["dual"]),
+             launches["cornellbox"]["v4.dual"] + grad["v4.dual"],
+             rec["dual"]),
             ("dense_v4_trace", v4_src, f"{v4_py}:115",
-             launches["cornellbox"]["v4.single"], rec["single"]),
+             launches["cornellbox"]["v4.single"] + grad["v4.single"],
+             rec["single"]),
             ("dense_v5_trace_dual", v5_src, f"{v5_py}:357",
-             launches["mid"]["v5.v5_dual"], rec["v5_dual"]),
+             launches["mid"]["v5.v5_dual"] + grad["v5.v5_dual"],
+             rec["v5_dual"]),
             ("dense_v5_trace", v5_src, f"{v5_py}:134",
-             launches["mid"]["v5.v5"], rec["v5"]),
+             launches["mid"]["v5.v5"] + grad["v5.v5"], rec["v5"]),
             ("dense_v5l_trace", v5_src, f"{v5_py}:646",
              launches["large"]["v5.v5l"], rec["v5l"]),
             ("dense_curve_trace", "pbrlab_tpu_torch/csrc/dense_curve.cu",
@@ -1442,7 +1757,9 @@ def main():
         note = row[name].get("note")
         row[name]["note"] = ((note + "; " if note else "") + (
             f"the scan path (render_scan {SCAN_SIZE}x{SCAN_SIZE}x{SCAN_SPP}"
-            f", k_volume 3, phase 6) launched it {scan[key]} times"))
+            f", k_volume 3, phase 6) launched it {scan[key]} times; the "
+            f"gradient pass (render_lanes remat, {GRAD_SIZE}x{GRAD_SIZE}x1, "
+            f"phase 7) {grad[key]}, forward and backward, included"))
     record["kernels"][-1]["note"] = (
         "on no render path (the JAX package reaches it only from "
         "tests/test_dense.py); launched in phase 3 only")

@@ -13,8 +13,17 @@ lane's result does not depend on where it sits in the wavefront.
 The JAX package's `lax.while_loop` / `lax.scan` / `lax.cond` are Python
 control flow here. The loop test, the volume-window test and the scan's
 "any lane in volume mode" test read a device value, one host sync each
-per trip. Everything runs under `torch.no_grad()`: the render is
-forward-only, as the JAX package stop-gradients every trace.
+per trip.
+
+Gradients flow through `render_lanes` (and so `render_sample`) by torch
+autograd, to the material, emission and texture leaves the fat tables
+are built from. Geometry is not differentiated: the gradient stops where
+the JAX package stops it (the trace results, the shading frame and hit
+point, the sampled scatter distance and the pdf denominators; see
+`render_lanes`), and the trace kernels run outside autograd. The
+persistent-lane `render_lanes_wavefront` and `render_scan` run under
+`torch.no_grad()`: they are forward-only, as the JAX package's while
+loop is.
 
 The scan path renders one sample of every pixel per `render_lanes` call:
 `max_steps` full steps, each followed by `k_volume` unwindowed volume
@@ -41,20 +50,19 @@ PBRLAB_TRACE_BACKEND knob: "dense4", "dense5", "dense5l", "dense5s",
 "dense5i", or a legacy one, "dense3" (dense_v3) or "dense" / "dense2"
 (dense_v2), whose tables every `commit` adds.
 
-Still missing: gradients through `render_lanes` (the JAX package's
-`remat` and its stop-gradient sites; ROADMAP A9b) and the parallel
-modules with the wavefront's `lane` slice (A16). The JAX package's other
-PBRLAB_* environment knobs are not ported (A17).
+The JAX package's other PBRLAB_* environment knobs are not ported
+(ROADMAP A17).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import rng as prng
-from ..core.math import (EPS, F32_EPS, INF, saturate, spectrum_norm, vdot,
-                         vnormalize)
+from ..core.math import (EPS, F32_EPS, INF, gather_rows, saturate,
+                         spectrum_norm, vdot, vnormalize)
 from ..core.onb import branchless_onb, to_global, to_local
 from ..core.sampling import (cosine_sample_hemisphere, power_heuristic_weight,
                              uniform_sample_sphere)
@@ -203,7 +211,7 @@ def _rows(table, idx):
     """table[clip(idx, 0, rows - 1)] for an index column idx [N] (int or
     float)."""
     i = torch.clamp(idx.to(torch.int64), 0, table.shape[0] - 1)
-    return table[i]
+    return gather_rows(table, i)
 
 
 def _fetch_face_fat(scene, safe_prim):
@@ -213,10 +221,11 @@ def _fetch_face_fat(scene, safe_prim):
     space by the instance's normal matrix (inst_shade[:, 12:21]); the
     instance column is the world instance (mesh-instance.h:23-36)."""
     if "iface_fat" not in scene:
-        return scene["face_fat"][safe_prim]
-    irow = scene["iface_fat"][safe_prim]  # mat pdf em3 inst slot 0
+        return gather_rows(scene["face_fat"], safe_prim)
+    irow = gather_rows(scene["iface_fat"], safe_prim)  # mat pdf em3 inst slot 0
     lrow = _rows(scene["local_fat"], irow[:, 6])  # ng cns uv has_ns has_uv
-    nrm = _rows(scene["inst_shade"], irow[:, 5])[:, 12:21].reshape(-1, 3, 3)
+    nrm = _rows(scene["inst_shade"], irow[:, 5])[:, 12:21].detach().reshape(
+        -1, 3, 3)
 
     def rot(v):  # nrm @ v per lane, summed in index order
         return (nrm[:, :, 0] * v[:, 0:1] + nrm[:, :, 1] * v[:, 1:2]
@@ -328,6 +337,10 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     min_t = torch.where(need_new_dir, 0.0, state.min_t)
     t_scatter, channel_pdf = sample_scatter_distance(
         state.sss_tp, state.sss_sigma_s, state.sss_sigma_t, uc, ut)
+    # the sampled distance is detached, and so are the pdf denominators
+    # below: g / detach(p) is the unbiased surrogate of the transport
+    # derivative, a live p biases it (render_lanes)
+    t_scatter = t_scatter.detach()
     max_t = torch.where(volume_mode, t_scatter,
                         -1.0 if freeze_surface else INF)
     max_t = torch.where(state.alive, max_t, -1.0)  # dead lanes: no traversal
@@ -339,23 +352,27 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     nee_active = state.nee_maxt >= 0.0
     contribution = state.contribution
     resolved_now = torch.zeros((n,), dtype=torch.bool, device=dev)
+    # the traces see detached rays: the kernels are outside autograd, and
+    # their plain versions would otherwise record every walk
+    rays = [x.detach() for x in (state.org, direction, min_t, max_t)]
     if not freeze_surface or resolve_pending:
         # full steps resolve every pending query; the first substep only
         # those of alive volume lanes, whose origin the walk moves next
         resolve_mask = (volume_mode & state.alive & nee_active
                         if freeze_surface else nee_active)
         hit, occ_prev = trace_scene_dual(
-            scene, state.org, direction, min_t, max_t, state.nee_dir,
+            scene, *rays, state.nee_dir.detach(),
             torch.full((n,), EPS, device=dev),
-            torch.where(resolve_mask, state.nee_maxt, -1.0), backend=backend)
+            torch.where(resolve_mask, state.nee_maxt, -1.0).detach(),
+            backend=backend)
         contribution = contribution + torch.where(
             (resolve_mask & ~occ_prev)[..., None], state.nee_contrib, 0.0)
         resolved_now = resolve_mask
     else:
         # later substeps resolve nothing (the JAX package's all-dead
         # shadow trace here has no effect and is skipped)
-        hit = trace_scene(scene, state.org, direction, min_t, max_t,
-                          backend=backend)
+        hit = trace_scene(scene, *rays, backend=backend)
+    hit = {key: x.detach() for key, x in hit.items()}
     prim = hit["prim"]
     is_curve = hit["is_curve"]
     hit_ok = (prim >= 0) | is_curve
@@ -380,6 +397,7 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
         hit_instance = torch.where(is_curve, scene["curve_instance"][seg],
                                    hit_instance)
         mat_id = torch.where(is_curve, scene["curve_material"][seg], mat_id)
+    ng, ns, uv, pos = (x.detach() for x in (ng, ns, uv, pos))
     face_dir = _classify(direction, ng, ns)
 
     alive = state.alive
@@ -389,7 +407,7 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     s_alive = alive & surface_mode
     if freeze_surface:
         s_alive = torch.zeros_like(s_alive)  # surface lanes pass through
-    pdf_area = frow[:, 21]
+    pdf_area = frow[:, 21].detach()
     nsd = vdot(ns, direction)
     a2sa = torch.abs(t_shade * t_shade
                      / torch.where(torch.abs(nsd) > 1e-12, nsd, 1e-12))
@@ -412,8 +430,10 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     v_alive = alive & volume_mode
     rng_state, uvrr = prng.draw(rng_state)
     trans = torch.exp(-state.sss_sigma_t * t_eff[..., None])
-    pdf_hit = vdot(channel_pdf, trans)
-    pdf_scatter = vdot(channel_pdf, state.sss_sigma_t * trans)
+    # detached pdf denominators; the numerators stay live, so radius and
+    # albedo gradients flow
+    pdf_hit = vdot(channel_pdf, trans).detach()
+    pdf_scatter = vdot(channel_pdf, state.sss_sigma_t * trans).detach()
     sss_tp_hit = state.sss_tp * trans / torch.clamp(pdf_hit, min=1e-12)[..., None]
     sss_tp_scat = (state.sss_tp * (state.sss_sigma_s * trans)
                    / torch.clamp(pdf_scatter, min=1e-12)[..., None])
@@ -425,7 +445,7 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     v_dead_exit = v_alive & hit_ok & ~exit_ok
     # scatter lanes: volume russian roulette (random-walk-sss.h:349-358)
     v_scatter = v_alive & ~hit_ok
-    pv = saturate(spectrum_norm(sss_tp))
+    pv = saturate(spectrum_norm(sss_tp)).detach()
     v_rr_die = v_scatter & (uvrr >= pv)
     sss_tp = torch.where(v_scatter[..., None],
                          sss_tp / torch.clamp(pv, min=1e-12)[..., None], sss_tp)
@@ -598,12 +618,12 @@ def init_state(scene, width: int, height: int, sample_id, seed,
         nee_maxt=torch.full((n,), -1.0, device=dev))
 
 
-@torch.no_grad()
 def render_lanes(scene, width: int, height: int, sample_id, seed=0,
-                 max_steps: int = 32, lane=None, sort_every: int = 2,
-                 k_volume: int = 0, tri_backend: str | None = None):
+                 max_steps: int = 32, lane=None, remat: bool = False,
+                 sort_every: int = 2, k_volume: int = 0,
+                 tri_backend: str | None = None):
     """One sample for pixel ids `lane` (None: every pixel) -> radiance
-    [n_lanes, 3] in lane order.
+    [n_lanes, 3] in lane order, differentiable.
 
     `max_steps` full steps; after each, while a lane is alive in volume
     mode, `k_volume` volume-only substeps (unwindowed, so they trace
@@ -613,12 +633,34 @@ def render_lanes(scene, width: int, height: int, sample_id, seed=0,
     and scattered back at the end (the same bits, per-lane RNG). A lane
     still alive after max_steps stops where it is. The last step's
     deferred NEE is answered by one any-hit trace. `tri_backend` forces
-    the triangle backend (see `wavefront_step`)."""
+    the triangle backend (see `wavefront_step`).
+
+    Gradients reach the scene's material, `face_emission` and
+    `texture_atlas` leaves: the fat tables are built here from them when
+    the scene has none. They stop where the JAX package stops them: the
+    trace results (the kernels run outside autograd, on detached rays),
+    the instance normal matrix, the hit point and shading frame (ng, ns,
+    uv, pos), the emitter's area pdf, and the sampled scatter distance
+    with the walk's pdf denominators (pdf_hit, pdf_scatter, the volume
+    roulette's pv). The sampled value is detached, so a live pdf in the
+    denominator would make a biased surrogate (its expectation picks up
+    -E[f d(log p)], which flipped the sign of subsurface_radius
+    gradients in the JAX package); g / detach(p) is equal in value and
+    its derivative's expectation is the transport derivative.
+
+    remat=True runs each depth (the full step, its substeps and the
+    compaction) under `torch.utils.checkpoint`: the backward keeps one
+    packed state a depth and recomputes the depth's activations, so the
+    trace kernels launch once more in the backward. The RNG is
+    counter-based and rides in the state, and the substeps' host sync
+    takes the same branch again, so the recompute gives the same bits
+    and the same gradients as remat=False."""
     if "mat_fat" not in scene:
         scene = build_fat_tables(scene)
     state = init_state(scene, width, height, sample_id, seed, lane)
     n = state.org.shape[0]
-    for depth in range(max_steps):
+
+    def body(state, depth):
         state = wavefront_step(scene, state, tri_backend=tri_backend)
         if k_volume and bool(  # host sync: skip when no lane walks
                 (state.alive & (state.mode == MODE_VOLUME)).any()):
@@ -628,11 +670,19 @@ def render_lanes(scene, width: int, height: int, sample_id, seed=0,
                                        tri_backend=tri_backend)
         if sort_every and (depth + 1) % sort_every == 0:
             state = compact_state(state, scene)
+        return state
+
+    for depth in range(max_steps):
+        if remat:
+            state = checkpoint(body, state, depth, use_reentrant=False)
+        else:
+            state = body(state, depth)
     nee_active = state.nee_maxt >= 0.0
     occ = occluded_scene(
-        scene, state.org, state.nee_dir,
+        scene, state.org.detach(), state.nee_dir.detach(),
         torch.full((n,), EPS, device=state.org.device),
-        torch.where(nee_active, state.nee_maxt, -1.0), backend=tri_backend)
+        torch.where(nee_active, state.nee_maxt, -1.0).detach(),
+        backend=tri_backend)
     contribution = state.contribution + torch.where(
         (nee_active & ~occ)[..., None], state.nee_contrib, 0.0)
     contribution = torch.where(torch.isfinite(contribution), contribution,
@@ -648,11 +698,15 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
                            seed=0, max_steps: int = 32, k_volume: int = 0,
                            n_lanes: int = 65536, vol_window: int | None = None,
                            flush_every: int = 4, return_iters: bool = False,
-                           tri_backend: str | None = None):
+                           tri_backend: str | None = None, lane=None):
     """Full-occupancy forward render: persistent lanes + a pixel work queue
     (the reference's atomic tile queue, render.cc:203-222). Returns the
-    summed radiance [width*height, 3] (divide by spp for the mean), and
-    with return_iters the number of sub-iterations run.
+    summed radiance [n, 3] of the pixel ids `lane` [n] (None: every
+    pixel, n = width * height) in their order (divide by spp for the
+    mean), and with return_iters the number of sub-iterations run. The
+    queue runs over local slots 0..n-1; a claim of slot p seeds the RNG
+    and the camera ray from pixel lane[p], so a slice renders its pixels'
+    bits of the whole image (a shard of `parallel.sharding`).
 
     A lane that finishes its pixel's last sample claims the next unclaimed
     pixel (rank among same-iteration claimants via a cumsum). A pixel's
@@ -673,19 +727,26 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
     if "mat_fat" not in scene:
         scene = build_fat_tables(scene)
     dev = scene["mat_fat"].device
-    n = width * height
+    i32 = torch.int32
+    if lane is not None:
+        lane = lane.to(device=dev, dtype=i32)
+    n = width * height if lane is None else lane.shape[0]
+
+    def pixel(p_loc):  # pixel id of local slot p_loc
+        return p_loc if lane is None else lane[
+            torch.clamp(p_loc, max=n - 1).to(torch.int64)]
+
     n_lanes = max(1, min(n, n_lanes))
     if vol_window is None:
         vol_window = max(1, n_lanes * 3 // 8)
     vol_window = max(1, min(vol_window, n_lanes))
     window_ok = k_volume > 0 and vol_window < n_lanes
     flush_every = max(1, min(flush_every, spp))
-    i32 = torch.int32
 
     state = init_state(scene, width, height, 0, seed,
-                       torch.arange(n_lanes, dtype=i32, device=dev))
-    # state.lane = currently claimed pixel; state.sample = sample index
-    # within it; sample == spp marks a retired lane.
+                       pixel(torch.arange(n_lanes, dtype=i32, device=dev)))
+    # state.lane = currently claimed local slot; state.sample = sample
+    # index within it; sample == spp marks a retired lane.
     PC = _PACK_COLS  # + pix_acc 3 | pend_rgb 3 | pend_pix 1
 
     def pack_ext(state, pix_acc, pend_rgb, pend_pix):
@@ -717,9 +778,10 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
         need = adv | got
         next_pixel = torch.clamp(next_pixel + want.sum(), max=n).to(i32)
 
-        rng0 = prng.seed_state(p_loc, s2 % spp, seed)
+        pix = pixel(p_loc)
+        rng0 = prng.seed_state(pix, s2 % spp, seed)
         rng0, (u1, u2) = prng.draw_n(rng0, 2)
-        org0, dir0 = generate_rays(scene, width, height, u1, u2, p_loc)
+        org0, dir0 = generate_rays(scene, width, height, u1, u2, pix)
         nd = need[..., None]
         state = state._replace(
             org=torch.where(nd, org0, state.org),
@@ -879,6 +941,7 @@ def render_sample(scene, width: int, height: int, sample_id, seed=0,
     return contribution.reshape(height, width, 3)
 
 
+@torch.no_grad()
 def render_scan(scene, width: int, height: int, spp: int, seed=0,
                 max_steps: int = 32, k_volume: int = 0):
     """spp independent `render_sample` passes summed in order 0..spp-1,

@@ -11,6 +11,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from ..core.math import gather_rows
 from ..core.sampling import sample_cdf, triangle_uniform_sample
 
 
@@ -34,7 +35,7 @@ def sample_all_light(scene: Dict, u0, u1, u2) -> SampledLight:
         return SampledLight(z3, z3, z3, u0.new_zeros((n,)),
                             torch.zeros((n,), dtype=torch.bool,
                                         device=u0.device))
-    row = scene["light_fat"][sample_cdf(cdf, u0)]
+    row = gather_rows(scene["light_fat"], sample_cdf(cdf, u0))
     u, v = triangle_uniform_sample(u1, u2)
     # Lerp3 with P = (1-u-v)p0 + u p1 + v p2  ==  p0 + u e1 + v e2
     position = row[:, 0:3] + u[..., None] * row[:, 3:6] + v[..., None] * row[:, 6:9]

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.math import gather_rows
+
 
 def _texel_coords(sizes, tex_id, u, v):
     """(texture row index, h, w, x, y): the lane's continuous texel
@@ -88,7 +90,10 @@ def fetch_float3_quad(quad, sizes, tex_id, u, v):
     fy = torch.where(y0 < 0.0, 0.0, y - y0)
     x0i = _clip(x0.to(torch.int32), (w - 1).to(torch.int32))
     y0i = _clip(y0.to(torch.int32), (h - 1).to(torch.int32))
-    row = quad[tid, y0i.to(torch.int64), x0i.to(torch.int64)]  # [N, 4C]
-    c = quad.shape[-1] // 4
+    t, hm, wm, c4 = quad.shape
+    row = gather_rows(quad.reshape(t * hm * wm, c4),  # [N, 4C]
+                      (tid * hm + y0i.to(torch.int64)) * wm
+                      + x0i.to(torch.int64))
+    c = c4 // 4
     return _bilerp(row[:, 0:c], row[:, c:2 * c], row[:, 2 * c:3 * c],
                    row[:, 3 * c:4 * c], fx, fy)[..., :3]

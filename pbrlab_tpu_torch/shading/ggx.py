@@ -108,21 +108,27 @@ def eval_pdf(omega_in, omega_out, alpha_x, alpha_y, distrib):
     g1i_iso = 2.0 / (1.0 + safe_sqrt(
         1.0 + alpha2_g * (1.0 - cos_ni2) / torch.clamp(cos_ni2, min=1e-12)))
 
-    mz = torch.where(torch.abs(m[..., 2]) < 1e-12, 1e-12, m[..., 2])
-    slope_x = -m[..., 0] / (mz * torch.clamp(alpha_x, min=1e-12))
-    slope_y = -m[..., 1] / (mz * torch.clamp(alpha_y, min=1e-12))
+    # the anisotropic branch, which isotropic lanes do not take, sees a
+    # unit alpha and the normal half vector there: its value (inf * 0
+    # for a grazing m at alpha 0) is masked in the forward, but NaN
+    # partials would turn the masked zero cotangent into NaN
+    ax = torch.where(iso, 1.0, alpha_x)
+    ay = torch.where(iso, 1.0, alpha_y)
+    ma = torch.where(iso[..., None], m.new_tensor([0.0, 0.0, 1.0]), m)
+    mz = torch.where(torch.abs(ma[..., 2]) < 1e-12, 1e-12, ma[..., 2])
+    slope_x = -ma[..., 0] / (mz * torch.clamp(ax, min=1e-12))
+    slope_y = -ma[..., 1] / (mz * torch.clamp(ay, min=1e-12))
     slope_len = 1.0 + slope_x * slope_x + slope_y * slope_y
-    cos_m2 = m[..., 2] * m[..., 2]
+    cos_m2 = ma[..., 2] * ma[..., 2]
     cos_m4 = cos_m2 * cos_m2
     d_aniso = 1.0 / torch.clamp(
-        (slope_len * slope_len) * PI * alpha2 * cos_m4, min=1e-12)
+        (slope_len * slope_len) * PI * (ax * ay) * cos_m4, min=1e-12)
 
     def aniso_g1(omega, cos_n):
         tan2 = (1.0 - cos_n * cos_n) / torch.clamp(cos_n * cos_n, min=1e-12)
         cph, sph = omega[..., 0], omega[..., 1]
         denom = torch.clamp(cph * cph + sph * sph, min=1e-12)
-        a2 = ((cph * cph) * (alpha_x * alpha_x)
-              + (sph * sph) * (alpha_y * alpha_y)) / denom
+        a2 = ((cph * cph) * (ax * ax) + (sph * sph) * (ay * ay)) / denom
         return 2.0 / (1.0 + safe_sqrt(1.0 + a2 * tan2))
 
     d = torch.where(iso, d_iso, d_aniso)

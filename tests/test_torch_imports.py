@@ -14,6 +14,8 @@ names = [m.name for m in pkgutil.walk_packages(pbrlab_tpu_torch.__path__,
                                                "pbrlab_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"pbrlab_tpu_torch.parallel.sharding",
+        "pbrlab_tpu_torch.parallel.distributed"} <= set(names)
 assert not any(k.startswith("jax") for k, v in sys.modules.items() if v)
 print(len(names))
 """
