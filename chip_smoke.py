@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA library (every csrc/*.cu) and drives its six
-render paths on one card:
+render paths on one card (and, in phase 8, the cornellbox and the hair
+scene again through the "bvh" backend):
 
 * cornellbox: `build_demo_scene(subdiv=3)`, dense_v4 (bench.py's headline
   scene), 512x512, 8 spp;
@@ -46,7 +47,13 @@ closest) and held against `render`, `render_scan` card vs CPU at
 32x32x2, and a `ProgressiveRenderer` at 512x512 behind a
 `PreviewServer` (each pass against `render_sample`, the average of 3
 against `render_scan`, an HTTP edit, the served PNG, a checkpoint round
-trip). Exits non-zero, printing no result, on any failure or without a
+trip); phase 7 the training and parallel paths (`training_phase`); phase
+8 the threaded-BVH backend (`bvh_phase`): the `bvh_trace` and
+`curve_bvh_trace` kernels (`csrc/bvh_walk.cu`, the JAX package's CPU
+walks) against their twins on phase 3's cornellbox and hair rays, card
+vs CPU renders of both scenes at 32x32x2, and both rendered at
+BVH_SIZE^2 x BVH_SPP with tri_backend="bvh", their launches counted.
+Exits non-zero, printing no result, on any failure or without a
 CUDA card. The last lines are the kernels' JSON record, the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -95,6 +102,8 @@ FD_SIZE, FD_EPS = 64, 1e-2  # emission central differences, rtol 1e-2
 SHARD_SIZE, SHARD_SPP = 256, 2  # render_sharded on 2 shards of the card
 TRAIN_SIZE, TRAIN_STEPS = 64, 4  # train step on the textured quad scene
 DIST_SIZE, DIST_SPP = 128, 2  # two ranks on the card, gloo
+BVH_PATHS = ("cornellbox", "hair")  # phase 8: these at tri_backend="bvh"
+BVH_SIZE, BVH_SPP = 256, 8  # phase 8's renders
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
 N_SINGLE = 24576  # default volume window (3/8 of the lanes): substeps 2-3
 RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
@@ -1034,6 +1043,124 @@ def legacy_phase(modules, scene, path_rays_, card):
     return rec
 
 
+def bvh_case(name, kernel, tables, rays, any_hit, card, ops_prim):
+    """A threaded-BVH walk kernel ("bvh_trace" or "curve_bvh_trace") vs its
+    twin on the same rays: t, u, v, prim equal to the bit; the twin's
+    counts of each lane's tests; CUDA-event times; the bound from the need
+    (closest: the walk with each lane's final t as its cap from the
+    start; any-hit: the walk's own tests)."""
+    from pbrlab_tpu_torch.ops import bvh_walk, curves, intersect
+
+    twin = (intersect._bvh_walk_ref if kernel == "bvh_trace"
+            else curves._curve_walk_ref)
+    tree, prims = tables
+    org, direction, min_t, max_t = rays
+    n = org.shape[0]
+    got = bvh_walk.walk_cuda(kernel, tree, prims, *rays, any_hit=any_hit)
+    *ref, work = twin(tree, prims, *rays, any_hit=any_hit, counts=True)
+    torch.cuda.synchronize()
+    for key, x, y in zip(("t", "u", "v", "prim"), got, ref):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: {key} differs from the twin on "
+                                 f"{int((x != y).sum())} lanes")
+    hit = ref[3] >= 0
+    err = float((got[0][hit] - ref[0][hit]).abs().max()) if hit.any() \
+        else 0.0
+    need = work if any_hit else twin(
+        tree, prims, org, direction, min_t,
+        torch.where(hit, ref[0], max_t), counts=True)[-1]
+    tests, boxes = int(need[:, 0].sum()), int(need[:, 1].sum())
+    ms = cuda_ms(lambda: bvh_walk.walk_cuda(kernel, tree, prims, *rays,
+                                            any_hit=any_hit))
+    plain = cuda_ms(lambda: twin(tree, prims, *rays, any_hit=any_hit),
+                    reps=3, warmup=1)
+    b_ms, b_by = bound(nbytes(*tree, *prims, *rays) + 16 * n,
+                       ops_prim * tests + OPS_BOX * boxes)
+    live = max(int((max_t >= min_t).sum()), 1)
+    walked = work.sum(0).tolist()
+    print(f"{name}: N={n} hits={int(hit.sum())} (t, u, v, prim bit-equal "
+          f"to the twin); kernel {ms:.4f} ms, twin {plain:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {tests} primitive and {boxes} box tests "
+          f"needed; the walk did {walked[0]} and {walked[1]}, "
+          f"{walked[0] / max(tests, 1):.3f}x and "
+          f"{walked[1] / max(boxes, 1):.3f}x, per live lane "
+          f"{walked[0] / live:.1f} and {walked[1] / live:.1f}, the longest "
+          f"walk {int(work[:, 1].max())} nodes) ({card})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+
+
+def bvh_phase(counters, scenes_np, scenes, rays, card):
+    """Phase 8: the "bvh" backend. Both threaded-BVH walk kernels against
+    their twins on phase 3's path rays (the cornellbox's triangles, the
+    hair scene's curves; closest and any-hit at N_DUAL), card vs CPU
+    renders at 32x32x2 in phase 4's band, then the cornellbox and the hair
+    scene rendered at BVH_SIZE^2 x BVH_SPP with tri_backend="bvh", every
+    launch counter set to 0 just before each render and read just after:
+    the walks must run and no other trace kernel. Returns (kernel records,
+    launches per render)."""
+    from pbrlab_tpu_torch.ops import bvh_walk, curves, intersect
+    from pbrlab_tpu_torch.render.integrator import render_lanes_wavefront
+
+    corn, hair = scenes["cornellbox"], scenes["hair"]
+    tri = ([corn[k] for k in intersect.BVH_TABLES[:5]],
+           [corn[k] for k in intersect.BVH_TABLES[5:]])
+    rib = ([hair[k] for k in curves.CBVH_TABLES],
+           [hair[k] for k in curves.CURVE_COLUMNS])
+    print(f"bvh tables: cornellbox {tri[0][2].shape[0]} nodes over "
+          f"{tri[1][0].shape[0]} slots, hair tuft {rib[0][2].shape[0]} "
+          f"nodes over {rib[1][0].shape[0]} sub-segments")
+    dual, _ = rays["cornellbox"]
+    rec = {"bvh": bvh_case("bvh_trace closest", "bvh_trace", tri, dual[:4],
+                           False, card, OPS_TRI)}
+    bvh_case("bvh_trace any-hit (shadow rays)", "bvh_trace", tri,
+             (dual[0], *dual[4:]), True, card, OPS_TRI)
+    dual, _ = rays["hair"]
+    rec["curve_bvh"] = bvh_case("curve_bvh_trace closest", "curve_bvh_trace",
+                                rib, dual[:4], False, card, OPS_RIBBON)
+    bvh_case("curve_bvh_trace any-hit (shadow rays)", "curve_bvh_trace",
+             rib, (dual[0], *dual[4:]), True, card, OPS_RIBBON)
+
+    for name in BVH_PATHS:
+        render_parity(f"{name} bvh", scenes_np[name], scenes[name],
+                      width=32, height=32, spp=2, tri_backend="bvh",
+                      **SETTINGS)
+    counters = {**counters, "bvh": bvh_walk.LAUNCHES}
+    launches = {}
+    for name in BVH_PATHS:
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, iters = render_lanes_wavefront(
+            scenes[name], BVH_SIZE, BVH_SIZE, BVH_SPP, seed=SEED,
+            return_iters=True, tri_backend="bvh", **SETTINGS)
+        img = (total.reshape(BVH_SIZE, BVH_SIZE, 3) / BVH_SPP).cpu().numpy()
+        wall = time.perf_counter() - t0
+        counts = {f"{m}.{k}": v for m, c in counters.items()
+                  for k, v in c.items() if v}
+        launches[name] = dict(bvh_walk.LAUNCHES)
+        print(f"path {name} bvh: render {BVH_SIZE}x{BVH_SIZE}x{BVH_SPP} "
+              f"max_steps={SETTINGS['max_steps']} k_volume="
+              f"{SETTINGS['k_volume']} in {wall:.3f} s, {iters} "
+              f"sub-iterations, launches {counts}, mean {img.mean():.5f} "
+              f"({card})")
+        if not (np.isfinite(img).all() and (img >= 0).all()
+                and img.mean() > 0):
+            raise AssertionError(f"{name} bvh image is not finite, "
+                                 "non-negative, lit")
+        want = ["bvh_closest", "bvh_any_hit"]
+        if name == "hair":
+            want += ["curve_closest", "curve_any_hit"]
+        if not all(bvh_walk.LAUNCHES[k] for k in want):
+            raise AssertionError(f"{name} bvh path missed a walk: {counts}")
+        if any(not k.startswith("bvh.") for k in counts):
+            raise AssertionError(f"{name}: a trace left the bvh backend: "
+                                 f"{counts}")
+    return rec, launches
+
+
 def render_parity(name, scene_np, scene, fn=None, **kw):
     """`fn` (default `integrator.render`) on the card against the same
     call on the CPU, in the band of PERF.md section 2."""
@@ -1691,6 +1818,12 @@ def main():
     grad = training_phase(counters, scenes_np["cornellbox"],
                           scenes["cornellbox"], card)
     print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    # phase 8: the threaded-BVH backend (tri_backend="bvh")
+    t0 = time.perf_counter()
+    bvh_rec, bvh_launches = bvh_phase(counters, scenes_np, scenes, rays,
+                                      card)
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases took {time.perf_counter() - t_start:.1f} s")
     # v1 is on no render path, in JAX as here: its row carries the launches
     # that phase 5's renders made, which must be none
@@ -1736,6 +1869,15 @@ def main():
               f2["v2.closest"] + f2["v2.any_hit"], rec["v2"]),
              ("dense_v1_trace", legacy_src,
               "pbrlab_tpu/ops/pallas/dense.py:112", v1_launches, rec["v1"])]
+    bc, bh = bvh_launches["cornellbox"], bvh_launches["hair"]
+    rows += [("bvh_trace", "pbrlab_tpu_torch/csrc/bvh_walk.cu",
+              "pbrlab_tpu/ops/intersect.py:133",
+              bc["bvh_closest"] + bc["bvh_any_hit"] + bh["bvh_closest"]
+              + bh["bvh_any_hit"], bvh_rec["bvh"]),
+             ("curve_bvh_trace", "pbrlab_tpu_torch/csrc/bvh_walk.cu",
+              "pbrlab_tpu/ops/curves.py:108",
+              bh["curve_closest"] + bh["curve_any_hit"],
+              bvh_rec["curve_bvh"])]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1760,9 +1902,19 @@ def main():
             f", k_volume 3, phase 6) launched it {scan[key]} times; the "
             f"gradient pass (render_lanes remat, {GRAD_SIZE}x{GRAD_SIZE}x1, "
             f"phase 7) {grad[key]}, forward and backward, included"))
-    record["kernels"][-1]["note"] = (
+    row["dense_v1_trace"]["note"] = (
         "on no render path (the JAX package reaches it only from "
         "tests/test_dense.py); launched in phase 3 only")
+    row["bvh_trace"]["note"] = (
+        f"launches: phase 8's renders at tri_backend=\"bvh\", "
+        f"{BVH_SIZE}x{BVH_SIZE}x{BVH_SPP}: cornellbox {bc['bvh_closest']} "
+        f"closest + {bc['bvh_any_hit']} any-hit, hair {bh['bvh_closest']} + "
+        f"{bh['bvh_any_hit']}; a closest and an any-hit XLA while loop in "
+        f"the JAX package, not Pallas")
+    row["curve_bvh_trace"]["note"] = (
+        f"launches: phase 8's hair render at tri_backend=\"bvh\": "
+        f"{bh['curve_closest']} closest + {bh['curve_any_hit']} any-hit; an "
+        f"XLA while loop in the JAX package, not Pallas")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

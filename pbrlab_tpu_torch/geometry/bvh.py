@@ -136,3 +136,13 @@ def build_bvh(prim_bmin: np.ndarray, prim_bmax: np.ndarray,
         prim_offset=np.asarray(node_prim, np.int32),
         prim_ids=np.concatenate(prim_ids_out).astype(np.int32),
     )
+
+
+def triangle_bounds(v0, e1, e2):
+    """Per-triangle AABBs (bmin, bmax) [F, 3] from the scene's v0 / e1 / e2
+    columns."""
+    v1 = v0 + e1
+    v2 = v0 + e2
+    bmin = np.minimum(np.minimum(v0, v1), v2)
+    bmax = np.maximum(np.maximum(v0, v1), v2)
+    return bmin, bmax

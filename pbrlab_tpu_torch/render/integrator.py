@@ -47,8 +47,10 @@ base and subsurface colour from the quad-texel atlas at the hit's uv.
 The triangle backend is the scene's (`intersect._tri_backend`) unless the
 caller forces one with `tri_backend`, the counterpart of the JAX package's
 PBRLAB_TRACE_BACKEND knob: "dense4", "dense5", "dense5l", "dense5s",
-"dense5i", or a legacy one, "dense3" (dense_v3) or "dense" / "dense2"
-(dense_v2), whose tables every `commit` adds.
+"dense5i", a legacy one, "dense3" (dense_v3) or "dense" / "dense2"
+(dense_v2), or "bvh", the threaded-BVH walk that is the JAX package's
+default on its CPU (hair then walks the curve BVH, as there); every
+`commit` adds the legacy and bvh tables.
 
 The JAX package's other PBRLAB_* environment knobs are not ported
 (ROADMAP A17).
@@ -318,8 +320,8 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     `tri_backend` where the caller forces one, except an unwindowed
     substep (freeze_surface and not windowed), whose wavefront is mostly
     dead lanes: it takes `sparse_backend` of that choice (dense_v5 for
-    dense_v4, dense_v5l for dense_v5s; the legacy backends keep theirs),
-    as the JAX package does. The lanes of a windowed substep are mostly
+    dense_v4, dense_v5l for dense_v5s; the legacy backends and bvh keep
+    theirs), as the JAX package does. The lanes of a windowed substep are mostly
     walkers, so it keeps the choice. The choice changes the work, never a
     hit (the legacy kernels' group decisions aside: a grazing ray may hit
     in one cluster walk and miss in another).
@@ -934,24 +936,28 @@ def auto_k_volume(scene_np, max_steps: int = 32, cap: int = 12,
 
 
 def render_sample(scene, width: int, height: int, sample_id, seed=0,
-                  max_steps: int = 32, k_volume: int = 0):
-    """One sample per pixel -> radiance [H, W, 3] (linear)."""
+                  max_steps: int = 32, k_volume: int = 0,
+                  tri_backend: str | None = None):
+    """One sample per pixel -> radiance [H, W, 3] (linear); tri_backend
+    forces the triangle backend."""
     contribution = render_lanes(scene, width, height, sample_id, seed,
-                                max_steps, k_volume=k_volume)
+                                max_steps, k_volume=k_volume,
+                                tri_backend=tri_backend)
     return contribution.reshape(height, width, 3)
 
 
 @torch.no_grad()
 def render_scan(scene, width: int, height: int, spp: int, seed=0,
-                max_steps: int = 32, k_volume: int = 0):
+                max_steps: int = 32, k_volume: int = 0,
+                tri_backend: str | None = None):
     """spp independent `render_sample` passes summed in order 0..spp-1,
     then divided by spp (the reference's pass loop,
     render-layer.h:11-26); `render` is the same image from the
-    persistent lanes."""
+    persistent lanes. tri_backend forces the triangle backend."""
     if "mat_fat" not in scene:
         scene = build_fat_tables(scene)
     acc = torch.zeros((height, width, 3), device=scene["mat_fat"].device)
     for sample_id in range(spp):
         acc = acc + render_sample(scene, width, height, sample_id, seed,
-                                  max_steps, k_volume)
+                                  max_steps, k_volume, tri_backend)
     return _mean(acc, spp)

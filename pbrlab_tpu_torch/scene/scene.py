@@ -6,18 +6,15 @@ produce the same arrays for the tables the port reads: every triangle
 baked to world space, per-face columns in SAH slot order, the flattened
 light CDF, the dense_v4 / v5 trace tables, the dense_v5l / v5s tables of
 scenes past 18000 slots, the compaction signature boxes, the Morton-packed
-tables of the legacy dense v1-v3 backends, and the hair
-tables of `commit_curves` (sub-segment columns in Morton order, the
-dense_curve rows and cluster boxes, the per-sub-segment tangent rows).
+tables of the legacy dense v1-v3 backends, the threaded BVH of the
+"bvh" backend (`bvh_*`), and the hair tables of `commit_curves`
+(sub-segment columns in Morton order, the dense_curve rows and cluster
+boxes, the per-sub-segment tangent rows, and the curve BVH `cbvh_*` that
+`curves.curve_trace` walks).
 `scene_from_numpy` moves a committed scene (from either package) to torch
 tensors on a device; `build_fat_tables` packs the per-lane fat rows there,
 for a baked scene or an instanced one (`scene.instanced.build_instanced`),
 and the quad-texel texture atlas of a textured scene.
-
-The threaded-BVH tables
-(`bvh_*`, and the curve BVH `cbvh_*` that only the JAX package's CPU
-`curve_trace` reads) are left out: the port's CPU traces are the plain
-versions of its kernels.
 """
 from __future__ import annotations
 
@@ -27,9 +24,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..geometry.bvh import build_bvh, triangle_bounds
 from ..geometry.mesh import CubicBezierCurveMesh, TriangleMesh
 from ..ops.build import build_v5, leaf_major, subtree_cut
-from ..ops.curves import flatten_curves
+from ..ops.curves import flatten_curves, subsegment_bounds
 from ..ops.dense import pack_triangles
 from ..ops.dense_curve import pack_segments
 from .materials import MaterialBuilder, pack_material_fat
@@ -332,6 +330,24 @@ def commit(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     scene["dense_cluster_aabb"] = cluster_aabb
     scene["dense_order"] = (vslots[m_order] if m_order.size
                             else np.zeros((0,), np.int32))
+
+    # the threaded BVH of the "bvh" backend over the valid slots, its leaf
+    # ids remapped to slot ids
+    if F:
+        bmin, bmax = triangle_bounds(scene["tri_v0"][vslots],
+                                     scene["tri_e1"][vslots],
+                                     scene["tri_e2"][vslots])
+    else:
+        bmin, bmax = triangle_bounds(scene["tri_v0"], scene["tri_e1"],
+                                     scene["tri_e2"])
+    bvh = build_bvh(bmin, bmax)
+    scene["bvh_min"] = bvh.aabb_min
+    scene["bvh_max"] = bvh.aabb_max
+    scene["bvh_skip"] = bvh.skip
+    scene["bvh_prim_offset"] = bvh.prim_offset
+    scene["bvh_prim_ids"] = np.where(
+        bvh.prim_ids >= 0, vslots[np.maximum(bvh.prim_ids, 0)],
+        -1).astype(np.int32) if F else bvh.prim_ids
     return commit_curves(scene)
 
 
@@ -343,7 +359,9 @@ def commit_curves(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     Adds the sub-segment columns curve_p0, p1, r0, r1, seg, u0, u1 in the
     sorted order, dense_segs [Cpad, 12], dense_seg_aabb [8, M], and
     curve_sub_fat [C, 4]: unit tangent + source segment id, the one row a
-    curve hit fetches."""
+    dense_curve hit fetches; and the curve BVH of `curves.curve_trace`
+    over the sorted sub-segments (cbvh_min, max, skip, prim_offset,
+    prim_ids)."""
     scene = dict(scene)
     flat = flatten_curves(scene["curve_pts"])
     packed_segs, seg_aabb, seg_order = pack_segments(flat)
@@ -357,6 +375,12 @@ def commit_curves(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     scene["curve_sub_fat"] = np.concatenate(
         [e / elen, flat["curve_seg"][:, None].astype(np.float32)],
         axis=1).astype(np.float32)
+    cbvh = build_bvh(*subsegment_bounds(flat))
+    scene["cbvh_min"] = cbvh.aabb_min
+    scene["cbvh_max"] = cbvh.aabb_max
+    scene["cbvh_skip"] = cbvh.skip
+    scene["cbvh_prim_offset"] = cbvh.prim_offset
+    scene["cbvh_prim_ids"] = cbvh.prim_ids
     return scene
 
 

@@ -26,6 +26,11 @@
     band of (a), JAX's curves through its interpret-mode dense_curve; the
     render against the hair golden in the wider band its test measures
     (that golden went through JAX's curve BVH walk, ROADMAP C7).
+(f) `render(tri_backend="bvh")`, the JAX package's own CPU trace (the
+    threaded-BVH walk and, for hair, the curve-BVH walk), against all five
+    goldens, hair and textured included, in the band of (b) (measured:
+    100% of values in the band on every golden, the means equal to 2e-6
+    relative).
 """
 from functools import partial
 
@@ -331,3 +336,49 @@ def test_render_is_deterministic():
     # stays within the golden band of the full-occupancy render
     golden = np.load(GOLDEN_PATH)["ggx"]
     assert np.isclose(a, golden, rtol=1e-3, atol=1e-4).mean() >= 0.99
+
+
+def _textured_scene():
+    """tests/test_goldens.py:50-71's textured scene, through the port's
+    builder and commit."""
+    from pbrlab_tpu_torch.scene.demo import quad_mesh
+    from pbrlab_tpu_torch.scene.scene import SceneBuilder, commit
+
+    b = SceneBuilder()
+    tex = np.zeros((2, 2, 3), np.float32)
+    tex[0, 0] = tex[1, 1] = (1.0, 0.0, 0.0)
+    tex[0, 1] = tex[1, 0] = (0.0, 0.0, 1.0)
+    tid = b.add_texture(tex, "checker")
+    m = b.materials.add_principled("floor", specular=0.0,
+                                   base_color_tex_id=tid)
+    light_m = b.materials.add_principled("light", base_color=(0, 0, 0),
+                                         specular=0.0)
+    floor = quad_mesh([-1, 0, -1], [-1, 0, 1], [1, 0, 1], [1, 0, -1], m,
+                      "floor")
+    light = quad_mesh([-0.4, 1.5, -0.4], [0.4, 1.5, -0.4], [0.4, 1.5, 0.4],
+                      [-0.4, 1.5, 0.4], light_m, "light")
+    b.add_instance([floor])
+    lid = b.add_area_light_param((3.0, 3.0, 3.0))
+    b.add_instance([light],
+                   light_ids=[np.full((light.num_faces,), lid, np.int32)])
+    return commit(b.build())
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_SCENES) + ["hair",
+                                                          "textured"])
+def test_render_bvh_matches_goldens(name):
+    if name == "textured":
+        scene_np, k_volume = _textured_scene(), 0
+    elif name == "hair":
+        scene_np, k_volume = build_demo_scene(**HAIR_SCENE)[0], 0
+    else:
+        kw, k_volume = GOLDEN_SCENES[name]
+        scene_np = build_demo_scene(**kw)[0]
+    img = tint.render(scene_from_numpy(scene_np, "cpu"), W, H, SPP,
+                      seed=SEED, max_steps=6, k_volume=k_volume,
+                      tri_backend="bvh").numpy()
+    golden = np.load(GOLDEN_PATH)[name]
+    assert img.shape == golden.shape == (H, W, 3)
+    assert np.isfinite(img).all() and (img >= 0).all()
+    assert np.isclose(img, golden, rtol=1e-3, atol=1e-4).mean() >= 0.99
+    assert abs(img.mean() - golden.mean()) <= 1e-3 * golden.mean()

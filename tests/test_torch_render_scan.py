@@ -23,7 +23,10 @@ the JAX package, at the goldens' size (16x16, 4 spp, max_steps 6, seed 7).
     :174-194), and the port's truncation fraction on the sss scene beside
     JAX's (measured equal: 13 of 176 walks; JAX forces its CPU BVH walk,
     the port traces through dense_v4's twin, which can move a tied or
-    grazing lane: band 1 walk in 100).
+    grazing lane: band 1 walk in 100); forced to "bvh", the port's probe
+    gives JAX's value exactly.
+(f) `render_scan(tri_backend="bvh")` equals `render(tri_backend="bvh")`
+    to the bit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -210,12 +213,40 @@ def test_auto_k_volume_rule(golden_scenes):
                               device="cpu") > 3
 
 
-def test_sss_truncation_matches_jax(golden_scenes):
+@pytest.fixture(scope="module")
+def jax_truncation(golden_scenes):
+    """JAX's truncation fraction of the sss scene (its CPU BVH walk), 16
+    steps, k_volume 3, a 32x32 probe."""
     from pbrlab_tpu.utils.profiling import measure_sss_truncation as jmeasure
+
+    return jmeasure(golden_scenes["sss"][0], 16, k_volume=3, probe=32)
+
+
+def test_sss_truncation_matches_jax(golden_scenes, jax_truncation):
     from pbrlab_tpu_torch.utils.profiling import measure_sss_truncation
 
     sss = golden_scenes["sss"][0]
-    want = jmeasure(sss, 16, k_volume=3, probe=32)
     got = measure_sss_truncation(sss, 16, k_volume=3, probe=32, device="cpu")
     assert 0.0 < got < 0.08
-    assert abs(got - want) <= 0.01
+    assert abs(got - jax_truncation) <= 0.01
+
+
+def test_sss_truncation_bvh_equals_jax(golden_scenes, jax_truncation):
+    """Through the "bvh" backend the probe traces what JAX's traces, and
+    gives its value."""
+    from pbrlab_tpu_torch.utils.profiling import measure_sss_truncation
+
+    got = measure_sss_truncation(golden_scenes["sss"][0], 16, k_volume=3,
+                                 probe=32, device="cpu", tri_backend="bvh")
+    assert got == jax_truncation
+
+
+def test_render_scan_bvh_equals_render(golden_scenes):
+    """(d) through the "bvh" backend on the sss scene, whose k_volume
+    substeps walk the BVH too."""
+    _, scene, k = golden_scenes["sss"]
+    scan = tint.render_scan(scene, W, H, SPP, seed=SEED, max_steps=6,
+                            k_volume=k, tri_backend="bvh").numpy()
+    img = tint.render(scene, W, H, SPP, seed=SEED, max_steps=6, k_volume=k,
+                      tri_backend="bvh").numpy()
+    np.testing.assert_array_equal(scan, img)

@@ -29,6 +29,9 @@ CURVE_KEYS = ("curve_pts", "curve_material", "curve_instance", "curve_p0",
               "curve_p1", "curve_r0", "curve_r1", "curve_seg", "curve_u0",
               "curve_u1", "dense_segs", "dense_seg_aabb", "curve_sub_fat")
 LARGE_KEYS = ("dense_tris_v5l", "v5s_roots", "v5s_aabb")
+BVH_KEYS = ("bvh_min", "bvh_max", "bvh_skip", "bvh_prim_offset",
+            "bvh_prim_ids", "cbvh_min", "cbvh_max", "cbvh_skip",
+            "cbvh_prim_offset", "cbvh_prim_ids")
 
 
 @pytest.mark.parametrize("kw", [dict(subdiv=1), dict(subdiv=3),
@@ -44,7 +47,7 @@ def test_commit_matches_jax(kw):
     got, _ = tdemo.build_demo_scene(**kw)
     large = [k for k in LARGE_KEYS if k in want]
     assert large == [k for k in LARGE_KEYS if k in got]
-    for key in SLICE_KEYS + CURVE_KEYS + tuple(large):
+    for key in SLICE_KEYS + CURVE_KEYS + BVH_KEYS + tuple(large):
         assert got[key].dtype == want[key].dtype, key
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     for key, col in want["materials"].items():
@@ -193,19 +196,22 @@ def test_instanced_colored_hair_matches_jax():
 
 
 def test_unported_features_raise():
-    """What the port lacks raises ValueError: the JAX package's
-    threaded-BVH walk ("bvh"), and a backend whose tables the scene's
-    commit did not add (a legacy backend on an instanced scene, dense5l
-    without the large-scene tables). The legacy brute-force backends
-    (ROADMAP B8), instancing and textures, ported since, dispatch."""
+    """What a scene lacks raises ValueError: a backend whose tables the
+    scene's commit did not add (a legacy backend or the threaded-BVH walk
+    on an instanced scene, dense5l without the large-scene tables), and an
+    unknown backend. The legacy brute-force backends (ROADMAP B8), the
+    threaded-BVH walk ("bvh"), instancing and textures, ported since,
+    dispatch."""
     from pbrlab_tpu_torch.ops.intersect import _closest, _tri_backend
 
     scene = scene_from_numpy(tdemo.build_demo_scene(subdiv=1)[0], "cpu")
     ray = (torch.zeros((4, 3)), torch.ones((4, 3)), torch.zeros(4),
            torch.ones(4))
-    for legacy in ("dense3", "dense", "dense2"):
+    for legacy in ("dense3", "dense", "dense2", "bvh"):
         assert _closest(scene, legacy, *ray)["prim"].shape == (4,)
-    for backend, tables in (("bvh", scene), ("dense5l", scene),
+    for backend, tables in (("bvh", {k: v for k, v in scene.items()
+                                     if not k.startswith("bvh_")}),
+                            ("dense5l", scene), ("dense9", scene),
                             ("dense3", {k: v for k, v in scene.items()
                                         if not k.startswith("dense_")})):
         with pytest.raises(ValueError):

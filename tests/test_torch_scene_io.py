@@ -2,10 +2,9 @@
 package's loaders, on files each test writes.
 
 Both loaders are numpy and the standard library on both sides, so every
-parsed value and every committed table must be equal exactly. The port's
-commit leaves out the JAX package's threaded-BVH tables (`bvh_*`; `cbvh_*`
-of a scene with hair), which only its CPU BVH walk reads: every other
-table of JAX's scene dict is in the port's, equal. The cornellbox files
+parsed value and every committed table must be equal exactly: every
+table of JAX's scene dict is in the port's, equal, the threaded-BVH
+tables (`bvh_*`, `cbvh_*`) included. The cornellbox files
 are chip_smoke.py's `write_cornellbox`, the scene its `file` path renders.
 """
 import importlib.util
@@ -19,7 +18,6 @@ from pbrlab_tpu_torch.io import obj as tobj
 from pbrlab_tpu_torch.io import scene_json as tjson
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OMITTED = ("bvh_", "cbvh_")  # JAX-only tables (the threaded-BVH walk)
 
 MTL = """# PBR/SSS extension keys, as the reference's golden .mtl has them
 specular 0.7
@@ -104,9 +102,9 @@ def _chip_smoke():
 
 
 def _assert_equal(got, want, path=""):
-    """Nested dicts of arrays: the same keys (JAX's BVH tables aside) and
-    equal values, dtypes included."""
-    keys = {k for k in want if not k.startswith(OMITTED)}
+    """Nested dicts of arrays: the same keys and equal values, dtypes
+    included."""
+    keys = set(want)
     assert set(got) == keys, (path, set(got) ^ keys)
     for k in keys:
         if isinstance(want[k], dict):

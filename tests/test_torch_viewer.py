@@ -20,7 +20,6 @@ from pbrlab_tpu_torch.scene.demo import build_demo_scene
 from pbrlab_tpu_torch.scene.scene import scene_to_device
 from torch_threads import one_torch_thread  # noqa: F401
 
-OMITTED = ("bvh_", "cbvh_")  # JAX-only tables (its CPU BVH walks)
 PNG_SIG = b"\x89PNG\r\n\x1a\n"
 OBJ = """mtllib two.mtl
 o floor
@@ -69,7 +68,7 @@ def _write_cyhair(path):
 
 
 def _assert_equal(got, want, path=""):
-    keys = {k for k in want if not k.startswith(OMITTED)}
+    keys = set(want)
     assert set(got) == keys, (path, set(got) ^ keys)
     for k in keys:
         if isinstance(want[k], dict):
