@@ -38,8 +38,9 @@ kernel's; dense_v4 and dense_v3 also timed as whole wrapper calls);
 phase 4 checks small renders on the card against the same renders on the
 CPU (the instanced one on a 16-instance cut of its scene,
 PARITY_INSTANCED; the file scene through both legacy backends); phase 5
-renders each path with every launch counter set to 0 just before and
-read just after; phase 6 drives the user's entry points on the
+renders each path (`render_lanes_wavefront`: its loop as CUDA graphs,
+captured and replayed in the call) with every launch counter set to 0
+just before and read just after; phase 6 drives the user's entry points on the
 cornellbox (`entry_phase`): the CLI's `demo` at 512x512x8 with the auto
 k_volume (PNG checked), `render_scan` at 256x256x4, k_volume 3, with
 its launches counted (dense_v4 dual and any-hit, dense_v5 dual and
@@ -52,7 +53,13 @@ trip); phase 7 the training and parallel paths (`training_phase`); phase
 `curve_bvh_trace` kernels (`csrc/bvh_walk.cu`, the JAX package's CPU
 walks) against their twins on phase 3's cornellbox and hair rays, card
 vs CPU renders of both scenes at 32x32x2, and both rendered at
-BVH_SIZE^2 x BVH_SPP with tri_backend="bvh", their launches counted.
+BVH_SIZE^2 x BVH_SPP with tri_backend="bvh", their launches counted;
+phase 9 the render loop's CUDA graphs (`graph_phase`): every phase-5 path
+and the cornellbox at "bvh" rendered at GRAPH_SIZE^2 x GRAPH_SPP through
+the graphs, every phase under `torch.cuda.set_sync_debug_mode("error")`,
+and through the private eager loop, the images bit-equal and the
+launches equal, with both walls, the capture cost, the nodes per graph
+and the peak memory printed.
 Exits non-zero, printing no result, on any failure or without a
 CUDA card. The last lines are the kernels' JSON record, the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -104,6 +111,7 @@ TRAIN_SIZE, TRAIN_STEPS = 64, 4  # train step on the textured quad scene
 DIST_SIZE, DIST_SPP = 128, 2  # two ranks on the card, gloo
 BVH_PATHS = ("cornellbox", "hair")  # phase 8: these at tri_backend="bvh"
 BVH_SIZE, BVH_SPP = 256, 8  # phase 8's renders
+GRAPH_SIZE, GRAPH_SPP = 128, 2  # phase 9: graphed and eager renders
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
 N_SINGLE = 24576  # default volume window (3/8 of the lanes): substeps 2-3
 RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
@@ -1125,7 +1133,6 @@ def bvh_phase(counters, scenes_np, scenes, rays, card):
         render_parity(f"{name} bvh", scenes_np[name], scenes[name],
                       width=32, height=32, spp=2, tri_backend="bvh",
                       **SETTINGS)
-    counters = {**counters, "bvh": bvh_walk.LAUNCHES}
     launches = {}
     for name in BVH_PATHS:
         for c in counters.values():
@@ -1159,6 +1166,82 @@ def bvh_phase(counters, scenes_np, scenes, rays, card):
             raise AssertionError(f"{name}: a trace left the bvh backend: "
                                  f"{counts}")
     return rec, launches
+
+
+def graph_phase(scenes, file_scene, card):
+    """Phase 9: the render loop's CUDA graphs against the loop op by op.
+    Every phase-5 path and the cornellbox at tri_backend="bvh" render at
+    GRAPH_SIZE^2 x GRAPH_SPP through `integrator._wavefront`, first with a
+    `GraphRunner` whose every phase (warm-up, capture, replay) runs under
+    `torch.cuda.set_sync_debug_mode("error")`, so a phase that
+    synchronised raises (the host's reads sit between phases), then with
+    the `EagerRunner`: the images must be bit-equal and the sub-iterations
+    and launch counts equal. Prints both walls, each graph's capture and
+    instantiate seconds, replays and nodes, and each render's peak
+    allocated memory. Returns {path: record}."""
+    from pbrlab_tpu_torch.render import graphs
+    from pbrlab_tpu_torch.render.integrator import _wavefront
+
+    class Checked(graphs.GraphRunner):
+        def run(self, name, phase):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                super().run(name, phase)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    renders = [(name, scenes[name], None) for name in PATHS]
+    renders += [(f"file {backend}", file_scene, backend)
+                for backend in FILE_RENDERS]
+    renders.append(("cornellbox bvh", scenes["cornellbox"], "bvh"))
+    size, spp = GRAPH_SIZE, GRAPH_SPP
+    out = {}
+    for name, scene, backend in renders:
+        rec = {}
+        for kind in ("graphs", "eager"):
+            runner = Checked() if kind == "graphs" else graphs.EagerRunner()
+            for c in graphs.COUNTERS.values():
+                for k in c:
+                    c[k] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fb, iters = _wavefront(runner, scene, size, size, spp, seed=SEED,
+                                   tri_backend=backend, **SETTINGS)
+            torch.cuda.synchronize()
+            rec[kind] = {
+                "wall_s": time.perf_counter() - t0, "iters": iters,
+                "fb": fb.cpu(),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "launches": {f"{m}.{k}": v for m, c in
+                             graphs.COUNTERS.items() for k, v in c.items()
+                             if v}}
+            if kind == "graphs":
+                nodes = runner.nodes()
+                rec["phases"] = {ph: {**st, "nodes": nodes.get(ph)}
+                                 for ph, st in runner.stats.items()}
+        g, e = rec["graphs"], rec["eager"]
+        err = (g["fb"] - e["fb"]).abs().max().item()
+        capture = sum(st["capture_s"] + st["instantiate_s"]
+                      for st in rec["phases"].values())
+        print(f"graphs {name} {size}x{size}x{spp}: graphed {g['wall_s']:.3f}"
+              f" s (captures {capture:.3f} s), eager {e['wall_s']:.3f} s, "
+              f"{g['iters']} / {e['iters']} sub-iterations, max_abs_err "
+              f"{err}, peak allocated {g['peak_bytes'] / 2**20:.1f} / "
+              f"{e['peak_bytes'] / 2**20:.1f} MiB, launches {g['launches']}"
+              f" ({card})")
+        for phase, st in rec["phases"].items():
+            print(f"  {phase}: {st['nodes']} nodes, capture "
+                  f"{st['capture_s']:.4f} s, instantiate "
+                  f"{st['instantiate_s']:.4f} s, {st['replays']} replays")
+        if not (torch.equal(g["fb"], e["fb"]) and g["iters"] == e["iters"]
+                and g["launches"] == e["launches"] and g["fb"].sum() > 0):
+            raise AssertionError(f"{name}: the graphed render differs from "
+                                 "the eager loop")
+        if not any(st["replays"] for st in rec["phases"].values()):
+            raise AssertionError(f"{name}: no graph was replayed")
+        out[name] = rec
+    return out
 
 
 def render_parity(name, scene_np, scene, fn=None, **kw):
@@ -1658,37 +1741,14 @@ def rank_main(argv):
     return 0
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if len(sys.argv) > 1:  # a rank of phase 7's two-rank render
-        return rank_main(sys.argv[1:])
-    from pbrlab_tpu_torch.ops import (cuda_lib, dense, dense_curve, dense_v2,
-                                      dense_v3, dense_v4, dense_v5, dense_v5i)
-    from pbrlab_tpu_torch.render.integrator import render_lanes_wavefront
+def path_scenes(dev):
+    """The five paths' scenes (commit on the host, tables to `dev`) and
+    the file path's -> (numpy scenes, scenes, material names, file numpy
+    scene, file scene)."""
     from pbrlab_tpu_torch.scene.demo import build_demo_scene
     from pbrlab_tpu_torch.scene.instanced import build_instanced
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
 
-    dev = torch.device("cuda:0")
-    card = card_line()
-    t_start = time.perf_counter()
-    # phase 1: card
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
-
-    # phase 2: build every csrc/*.cu into one library (one nvcc per source)
-    t0 = time.perf_counter()
-    path, log = cuda_lib.build_library()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
-
-    # the five paths' scenes (commit on the host, tables to the card)
     scenes_np, scenes, names = {}, {}, {}
     for name, (kw, _, _) in PATHS.items():
         t0 = time.perf_counter()
@@ -1720,6 +1780,62 @@ def main():
           f"tables {file_np['dense_tris'].shape[1]} columns in "
           f"{file_np['dense_cluster_aabb'].shape[1]} clusters, written, "
           f"loaded and committed in {time.perf_counter() - t0:.2f} s")
+    return scenes_np, scenes, names, file_np, file_scene
+
+
+def graphs_only():
+    """Phase 9 alone, after the library's build and the paths' scenes:
+    python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.graphs_only())'
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from pbrlab_tpu_torch.ops import cuda_lib
+
+    card = card_line()
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    path, _ = cuda_lib.build_library()
+    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    _, scenes, _, _, file_scene = path_scenes(torch.device("cuda:0"))
+    t0 = time.perf_counter()
+    graph_phase(scenes, file_scene, card)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    print(card)
+    return 0
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if len(sys.argv) > 1:  # a rank of phase 7's two-rank render
+        return rank_main(sys.argv[1:])
+    from pbrlab_tpu_torch.ops import (cuda_lib, dense, dense_curve, dense_v2,
+                                      dense_v3, dense_v4, dense_v5, dense_v5i)
+    from pbrlab_tpu_torch.render import graphs
+    from pbrlab_tpu_torch.render.integrator import render_lanes_wavefront
+    from pbrlab_tpu_torch.scene.instanced import build_instanced
+    from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+
+    dev = torch.device("cuda:0")
+    card = card_line()
+    t_start = time.perf_counter()
+    # phase 1: card
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    # phase 2: build every csrc/*.cu into one library (one nvcc per source)
+    t0 = time.perf_counter()
+    path, log = cuda_lib.build_library()
+    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    for line in log.splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    scenes_np, scenes, names, file_np, file_scene = path_scenes(dev)
 
     # phase 3: kernel parity and times at each path's shapes
     rng = np.random.default_rng(SEED)
@@ -1765,10 +1881,7 @@ def main():
               "instanced": (("v5i", "closest"), ("v5i", "any_hit")),
               "file dense3": (("v3", "closest"), ("v3", "any_hit")),
               "file dense": (("v2", "closest"), ("v2", "any_hit"))}
-    counters = {"v4": dense_v4.LAUNCHES, "v5": dense_v5.LAUNCHES,
-                "curve": dense_curve.LAUNCHES, "v5i": dense_v5i.LAUNCHES,
-                "v1": dense.LAUNCHES, "v2": dense_v2.LAUNCHES,
-                "v3": dense_v3.LAUNCHES}
+    counters = graphs.COUNTERS  # every kernel wrapper's, by module
     renders = [(name, scenes[name], size, spp, None)
                for name, (_, size, spp) in PATHS.items()]
     renders += [(f"file {backend}", file_scene, size, spp, backend)
@@ -1779,12 +1892,14 @@ def main():
             for k in c:
                 c[k] = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         total, iters = render_lanes_wavefront(
             scene, size, size, spp, seed=SEED, return_iters=True,
             tri_backend=backend, **SETTINGS)
         img = (total.reshape(size, size, 3) / spp).cpu().numpy()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
         counts = {f"{m}.{k}": v for m, c in counters.items()
                   for k, v in c.items()}
         all_counts[name] = counts
@@ -1794,7 +1909,7 @@ def main():
               f"{SETTINGS['max_steps']} k_volume={SETTINGS['k_volume']} in "
               f"{wall:.3f} s, {iters} sub-iterations, launches {counts}, "
               f"mean {img.mean():.5f}, {size * size * spp / wall / 1e6:.4f} "
-              f"M camera samples/s ({card})")
+              f"M camera samples/s, peak allocated {peak:.1f} MiB ({card})")
         if not (np.isfinite(img).all() and (img >= 0).all()
                 and img.mean() > 0):
             raise AssertionError(f"{name} image is not finite, "
@@ -1824,6 +1939,11 @@ def main():
     bvh_rec, bvh_launches = bvh_phase(counters, scenes_np, scenes, rays,
                                       card)
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # phase 9: the render loop's CUDA graphs against the eager loop
+    t0 = time.perf_counter()
+    graph_phase(scenes, file_scene, card)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases took {time.perf_counter() - t_start:.1f} s")
     # v1 is on no render path, in JAX as here: its row carries the launches
     # that phase 5's renders made, which must be none

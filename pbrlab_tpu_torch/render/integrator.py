@@ -13,7 +13,9 @@ lane's result does not depend on where it sits in the wavefront.
 The JAX package's `lax.while_loop` / `lax.scan` / `lax.cond` are Python
 control flow here. The loop test, the volume-window test and the scan's
 "any lane in volume mode" test read a device value, one host sync each
-per trip.
+per trip. On the card the while loop's body runs as CUDA graphs of its
+branches (`_WavefrontLoop`, `render.graphs`), the counterpart of the
+JAX package's one compiled program; the scan path runs op by op.
 
 Gradients flow through `render_lanes` (and so `render_sample`) by torch
 autograd, to the material, emission and texture leaves the fat tables
@@ -79,6 +81,7 @@ from ..shading import hair, principled
 from ..shading.principled import PrincipledBsdf
 from ..shading.sss import sample_scatter_distance, scattering_coefficients
 from .camera import generate_rays
+from .graphs import EagerRunner, GraphRunner
 
 MODE_SURFACE = 0
 MODE_VOLUME = 1
@@ -695,7 +698,6 @@ def render_lanes(scene, width: int, height: int, sample_id, seed=0,
     return contribution
 
 
-@torch.no_grad()
 def render_lanes_wavefront(scene, width: int, height: int, spp: int,
                            seed=0, max_steps: int = 32, k_volume: int = 0,
                            n_lanes: int = 65536, vol_window: int | None = None,
@@ -725,39 +727,220 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
     their sum in a pend slot that is scattered into the framebuffer once
     every flush_every sub-iterations. `tri_backend` forces the triangle
     backend of every trace (see `wavefront_step`); None keeps the scene's.
+
+    On a CUDA scene the loop's phases run as CUDA graphs, captured in the
+    call and replayed (`render.graphs.GraphRunner`), the port of the JAX
+    package's compiled loop; on the CPU they run op by op. The host reads
+    only what the JAX body branches on: the loop test once every
+    flush_every sub-iterations and the window test once a sub-iteration.
     """
-    if "mat_fat" not in scene:
-        scene = build_fat_tables(scene)
-    dev = scene["mat_fat"].device
-    i32 = torch.int32
-    if lane is not None:
-        lane = lane.to(device=dev, dtype=i32)
-    n = width * height if lane is None else lane.shape[0]
+    fb, it = _wavefront(None, scene, width, height, spp, seed, max_steps,
+                        k_volume, n_lanes, vol_window, flush_every,
+                        tri_backend, lane)
+    return (fb, it) if return_iters else fb
 
-    def pixel(p_loc):  # pixel id of local slot p_loc
-        return p_loc if lane is None else lane[
-            torch.clamp(p_loc, max=n - 1).to(torch.int64)]
 
-    n_lanes = max(1, min(n, n_lanes))
-    if vol_window is None:
-        vol_window = max(1, n_lanes * 3 // 8)
-    vol_window = max(1, min(vol_window, n_lanes))
-    window_ok = k_volume > 0 and vol_window < n_lanes
-    flush_every = max(1, min(flush_every, spp))
+@torch.no_grad()
+def _wavefront(runner, scene, width: int, height: int, spp: int, seed=0,
+               max_steps: int = 32, k_volume: int = 0, n_lanes: int = 65536,
+               vol_window: int | None = None, flush_every: int = 4,
+               tri_backend: str | None = None, lane=None):
+    """`render_lanes_wavefront`'s loop through `runner` (`render.graphs`;
+    None: a `GraphRunner` on a CUDA scene, else an `EagerRunner`) ->
+    (summed radiance, sub-iterations). With an `EagerRunner` on the card
+    it is the loop op by op, which `chip_smoke.py` and a test hold the
+    graphs against."""
+    loop = _WavefrontLoop(scene, width, height, spp, seed, max_steps,
+                          k_volume, n_lanes, vol_window, flush_every,
+                          tri_backend, lane)
+    if loop.dev.type != "cuda":
+        return loop.run(runner or EagerRunner())
+    with torch.cuda.device(loop.dev):
+        return loop.run(runner or GraphRunner())
 
-    state = init_state(scene, width, height, 0, seed,
-                       pixel(torch.arange(n_lanes, dtype=i32, device=dev)))
-    # state.lane = currently claimed local slot; state.sample = sample
-    # index within it; sample == spp marks a retired lane.
-    PC = _PACK_COLS  # + pix_acc 3 | pend_rgb 3 | pend_pix 1
 
-    def pack_ext(state, pix_acc, pend_rgb, pend_pix):
+class _WavefrontLoop:
+    """`render_lanes_wavefront`'s loop state and the branches of the JAX
+    package's while-loop body (pbrlab_tpu/render/integrator.py:1157-1227)
+    as phases. The state lives in buffers allocated once: `packed` (the
+    [n_lanes, 46] loop carry: the 39 state columns, then pix_acc 3 |
+    pend_rgb 3 | pend_pix 1), `fb` [n, 3], `next_pixel` (0-dim) and the
+    pixel ids `lane`. A phase reads them and the scene's tables and ends
+    by writing its results into them in place, so a CUDA graph of it
+    reads and writes the captured addresses on every replay; what the
+    host branches on it leaves in `probe` (0-dim int64). `run` issues the
+    phases in the JAX body's order through a runner (`render.graphs`)."""
+
+    def __init__(self, scene, width, height, spp, seed, max_steps, k_volume,
+                 n_lanes, vol_window, flush_every, tri_backend, lane):
+        if "mat_fat" not in scene:
+            scene = build_fat_tables(scene)
+        self.scene = scene
+        self.dev = dev = scene["mat_fat"].device
+        self.width, self.height, self.spp, self.seed = width, height, spp, seed
+        self.max_steps, self.k_volume = max_steps, k_volume
+        self.tri_backend = tri_backend
+        i32 = torch.int32
+        self.lane = (None if lane is None
+                     else lane.to(device=dev, dtype=i32))
+        self.n = n = width * height if lane is None else lane.shape[0]
+        self.n_lanes = n_lanes = max(1, min(n, n_lanes))
+        if vol_window is None:
+            vol_window = max(1, n_lanes * 3 // 8)
+        self.vol_window = max(1, min(vol_window, n_lanes))
+        self.window_ok = k_volume > 0 and self.vol_window < n_lanes
+        self.flush_every = max(1, min(flush_every, spp))
+        # generous iteration cap (a pixel costs <= spp * max_steps *
+        # (1 + k_volume) iterations on one lane; claims overlap lanes)
+        self.cap = (spp * max_steps * (1 + k_volume)
+                    * ((n + n_lanes - 1) // n_lanes + 2))
+        # state.lane = currently claimed local slot; state.sample = sample
+        # index within it; sample == spp marks a retired lane.
+        state = init_state(scene, width, height, 0, seed,
+                           self._pixel(torch.arange(n_lanes, dtype=i32,
+                                                    device=dev)))
+        zeros3 = torch.zeros((n_lanes, 3), device=dev)
+        self.packed = self._pack_ext(
+            state, zeros3, zeros3,
+            torch.full((n_lanes,), -1, dtype=i32, device=dev))
+        self.fb = torch.zeros((n, 3), device=dev)
+        self.next_pixel = torch.full((), n_lanes, dtype=i32, device=dev)
+        self.probe = torch.zeros((), dtype=torch.int64, device=dev)
+        self.probe.copy_(self._pending())
+
+    def run(self, runner):
+        """The while loop -> (fb, sub-iterations). Per trip (`cond` at
+        :1123, the body at :1157): flush_every sub-iterations, then the
+        framebuffer flush. A sub-iteration with the window: (A), then
+        (B-win) if the walkers fit the window (`lax.cond` at :1210), else
+        (B-full); without the window but with substeps: (A-head), (B-any)
+        if a lane walks (`lax.cond` at :1168), (A-tail); without
+        substeps: (A)."""
+        it = 0
+        while it < self.cap and runner.read(self.probe):  # loop test
+            for _ in range(self.flush_every):
+                if self.window_ok:
+                    runner.run("A", self.full_step)
+                    if runner.read(self.probe) <= self.vol_window:
+                        runner.run("B-win", self.window_substeps)
+                    else:
+                        runner.run("B-full", self.all_substeps)
+                elif self.k_volume:
+                    runner.run("A-head", self.step_head)
+                    if runner.read(self.probe):
+                        runner.run("B-any", self.any_substeps)
+                    runner.run("A-tail", self.step_tail)
+                else:
+                    runner.run("A", self.full_step)
+            runner.run("F", self.flush)
+            it += self.flush_every
+        # safety flush for a cap exit: the current pixel's finished
+        # samples plus the in-flight sample's contribution
+        spp, n = self.spp, self.n
+        state = unpack_state(self.packed)
+        contrib = torch.where(
+            ((state.sample < spp) & ~state.alive)[..., None]
+            & torch.isfinite(state.contribution), state.contribution, 0.0)
+        self.fb.index_add_(0, torch.clamp(state.lane, max=n - 1).to(
+            torch.int64), self.packed[:, _PACK_COLS:_PACK_COLS + 3] + contrib)
+        return self.fb, it
+
+    # --- phases ----------------------------------------------------------
+
+    def full_step(self):
+        """(A) refill, one full step, the per-sample step budget (with the
+        window the kill waits until after the substeps, so a max-depth
+        walker still gets them), the compaction; with the window, the
+        count of walkers in the probe."""
+        p = self._refill_step()
+        if not self.window_ok:
+            _kill_spent(p, self.max_steps)
+        self.packed.copy_(compact_packed(p, self.scene))
+        if self.window_ok:
+            # alive volume lanes occupy rows [0, nv) after the sort
+            self.probe.copy_(self._walkers())
+
+    def step_head(self):
+        """(A-head) refill and one full step, unsorted; the count of
+        walkers in the probe."""
+        self.packed.copy_(self._refill_step())
+        self.probe.copy_(self._walkers())
+
+    def step_tail(self):
+        """(A-tail) the per-sample step budget and the compaction."""
+        _kill_spent(self.packed, self.max_steps)
+        self.packed.copy_(compact_packed(self.packed, self.scene))
+
+    def window_substeps(self):
+        """(B-win) the k_volume substeps on the leading vol_window rows,
+        then the step budget on every row."""
+        self._substeps(self.packed[:self.vol_window], windowed=True)
+        _kill_spent(self.packed, self.max_steps)
+
+    def all_substeps(self):
+        """(B-full) the k_volume substeps on every row, unwindowed, then
+        the step budget."""
+        self._substeps(self.packed, windowed=False)
+        _kill_spent(self.packed, self.max_steps)
+
+    def any_substeps(self):
+        """(B-any) the k_volume substeps on every row, unwindowed."""
+        self._substeps(self.packed, windowed=False)
+
+    def flush(self):
+        """(F) the amortized framebuffer flush: every pend slot drained
+        once a trip (a pixel is in at most one slot; empty slots add 0 to
+        pixel 0) and emptied; the loop test in the probe."""
+        pc = _PACK_COLS
+        pend_pix = self.packed[:, pc + 6].to(torch.int64)
+        self.fb.index_add_(0, torch.clamp(pend_pix, 0, self.n - 1),
+                           torch.where((pend_pix >= 0)[:, None],
+                                       self.packed[:, pc + 3:pc + 6], 0.0))
+        self.packed[:, pc + 3:pc + 6] = 0.0
+        self.packed[:, pc + 6] = -1.0
+        self.probe.copy_(self._pending())
+
+    # --- their parts -----------------------------------------------------
+
+    def _pixel(self, p_loc):
+        """The pixel id of local slot p_loc."""
+        return p_loc if self.lane is None else self.lane[
+            torch.clamp(p_loc, max=self.n - 1).to(torch.int64)]
+
+    @staticmethod
+    def _pack_ext(state, pix_acc, pend_rgb, pend_pix):
         return torch.cat([pack_state(state), pix_acc, pend_rgb,
                           pend_pix.to(torch.float32)[:, None]], dim=1)
 
-    def refill(state, pix_acc, pend_rgb, pend_pix, next_pixel):
+    def _walkers(self):
+        """Alive lanes in volume mode."""
+        p = self.packed
+        return ((p[:, 15] > 0.5) & (p[:, 17] > 0.5)).sum()
+
+    def _pending(self):
+        """The loop test: a lane alive or a pixel sample not done."""
+        p = self.packed
+        return ((p[:, 15] > 0.5) | (p[:, 30] < self.spp)).any()
+
+    def _refill_step(self):
+        """Refill, one full wavefront_step and the depth count -> the new
+        packed rows (a new tensor); advances next_pixel."""
+        pc = _PACK_COLS
+        p = self.packed
+        state, pix_acc, pend_rgb, pend_pix = self._refill(
+            unpack_state(p), p[:, pc:pc + 3], p[:, pc + 3:pc + 6],
+            p[:, pc + 6].to(torch.int32))
+        stepped = state.alive
+        state = wavefront_step(self.scene, state,
+                               tri_backend=self.tri_backend)
+        state = state._replace(depth=torch.where(stepped, state.depth + 1,
+                                                 state.depth))
+        return self._pack_ext(state, pix_acc, pend_rgb, pend_pix)
+
+    def _refill(self, state, pix_acc, pend_rgb, pend_pix):
         """Flush finished samples into pix_acc; advance the sample or claim
         a new pixel; park completed pixels in the pend slot."""
+        spp, n, i32 = self.spp, self.n, torch.int32
         # a dead lane with an unresolved deferred-NEE query keeps its slot
         # for one more step (the trace resolves it, then it flushes here)
         flush = (~state.alive & (state.sample < spp)
@@ -772,18 +955,20 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
         pend_rgb = torch.where(want[..., None], pix_acc, pend_rgb)
         pend_pix = torch.where(want, state.lane, pend_pix)
         pix_acc = torch.where(want[..., None], 0.0, pix_acc)
+        next_pixel = self.next_pixel
         newp = next_pixel + torch.cumsum(want.to(i32), 0).to(i32) - 1
         got = want & (newp < n)
         p_loc = torch.where(got, newp, state.lane)
         s2 = torch.where(adv, sn, torch.where(
             got, 0, torch.where(want, spp, state.sample))).to(i32)
         need = adv | got
-        next_pixel = torch.clamp(next_pixel + want.sum(), max=n).to(i32)
+        self.next_pixel.copy_(torch.clamp(next_pixel + want.sum(), max=n))
 
-        pix = pixel(p_loc)
-        rng0 = prng.seed_state(pix, s2 % spp, seed)
+        pix = self._pixel(p_loc)
+        rng0 = prng.seed_state(pix, s2 % spp, self.seed)
         rng0, (u1, u2) = prng.draw_n(rng0, 2)
-        org0, dir0 = generate_rays(scene, width, height, u1, u2, pix)
+        org0, dir0 = generate_rays(self.scene, self.width, self.height, u1,
+                                   u2, pix)
         nd = need[..., None]
         state = state._replace(
             org=torch.where(nd, org0, state.org),
@@ -799,82 +984,24 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
             lane=p_loc, sample=s2,
             depth=torch.where(need, 0, state.depth).to(i32),
             contribution=contribution)
-        return state, pix_acc, pend_rgb, pend_pix, next_pixel
+        return state, pix_acc, pend_rgb, pend_pix
 
-    def vol_substeps(st, windowed=False):
-        for i in range(k_volume):
-            st = wavefront_step(scene, st, freeze_surface=True,
+    def _substeps(self, rows, windowed):
+        """The k_volume volume-only substeps of the packed `rows`, in
+        place."""
+        st = unpack_state(rows[:, :_PACK_COLS])
+        for i in range(self.k_volume):
+            st = wavefront_step(self.scene, st, freeze_surface=True,
                                 resolve_pending=(i == 0), windowed=windowed,
-                                tri_backend=tri_backend)
-        return st
+                                tri_backend=self.tri_backend)
+        rows[:, :_PACK_COLS].copy_(pack_state(st))
 
-    def vol_substeps_packed(p, windowed=False):
-        st = vol_substeps(unpack_state(p[:, :PC]), windowed)
-        return torch.cat([pack_state(st), p[:, PC:]], dim=1)
 
-    # generous iteration cap (a pixel costs <= spp * max_steps *
-    # (1 + k_volume) iterations on one lane; claims overlap lanes)
-    cap = (spp * max_steps * (1 + k_volume)
-           * ((n + n_lanes - 1) // n_lanes + 2))
-    fb = torch.zeros((n, 3), device=dev)
-    zeros3 = torch.zeros((n_lanes, 3), device=dev)
-    packed = pack_ext(state, zeros3, zeros3,
-                      torch.full((n_lanes,), -1, dtype=i32, device=dev))
-    next_pixel = torch.tensor(n_lanes, dtype=i32, device=dev)
-    it = 0
-    # loop test: a host sync per trip
-    while it < cap and bool(((packed[:, 15] > 0.5)
-                             | (packed[:, 30] < spp)).any()):
-        for _ in range(flush_every):
-            state = unpack_state(packed)
-            state, pix_acc, pend_rgb, pend_pix, next_pixel = refill(
-                state, packed[:, PC:PC + 3], packed[:, PC + 3:PC + 6],
-                packed[:, PC + 6].to(i32), next_pixel)
-            stepped = state.alive
-            state = wavefront_step(scene, state, tri_backend=tri_backend)
-            if k_volume and not window_ok and bool(
-                    (state.alive & (state.mode == MODE_VOLUME)).any()):
-                state = vol_substeps(state)
-            # per-sample step budget; with the window the kill waits until
-            # after the substeps, so a max-depth walker still gets them
-            depth = torch.where(stepped, state.depth + 1, state.depth)
-            state = state._replace(
-                depth=depth,
-                alive=(state.alive if window_ok
-                       else state.alive & (depth < max_steps)))
-            packed = compact_packed(
-                pack_ext(state, pix_acc, pend_rgb, pend_pix), scene)
-            if window_ok:
-                # alive volume lanes occupy rows [0, nv) after the sort
-                nv = int(((packed[:, 15] > 0.5)
-                          & (packed[:, 17] > 0.5)).sum())  # host sync
-                if nv <= vol_window:
-                    packed = torch.cat([
-                        vol_substeps_packed(packed[:vol_window], True),
-                        packed[vol_window:]])
-                else:
-                    packed = vol_substeps_packed(packed)
-                packed[:, 15] = torch.where(packed[:, 31] >= max_steps, 0.0,
-                                            packed[:, 15])
-        # amortized framebuffer flush: drain every pend slot once per trip
-        # (a pixel is in at most one slot; empty slots add 0 to pixel 0)
-        pend_pix = packed[:, PC + 6].to(torch.int64)
-        fb.index_add_(0, torch.clamp(pend_pix, 0, n - 1), torch.where(
-            (pend_pix >= 0)[:, None], packed[:, PC + 3:PC + 6], 0.0))
-        packed = torch.cat([
-            packed[:, :PC + 3], zeros3,
-            torch.full((n_lanes, 1), -1.0, device=dev)], dim=1)
-        it += flush_every
-
-    # safety flush for a cap exit: the current pixel's finished samples
-    # plus the in-flight sample's contribution
-    state = unpack_state(packed)
-    contrib = torch.where(
-        ((state.sample < spp) & ~state.alive)[..., None]
-        & torch.isfinite(state.contribution), state.contribution, 0.0)
-    fb.index_add_(0, torch.clamp(state.lane, max=n - 1).to(torch.int64),
-                  packed[:, PC:PC + 3] + contrib)
-    return (fb, it) if return_iters else fb
+def _kill_spent(packed, max_steps):
+    """The per-sample step budget, in place: lanes at max_steps full
+    steps die."""
+    packed[:, 15] = torch.where(packed[:, 31] >= max_steps, 0.0,
+                                packed[:, 15])
 
 
 def render(scene, width: int, height: int, spp: int, seed=0,

@@ -114,7 +114,9 @@ def eval_pdf(omega_in, omega_out, alpha_x, alpha_y, distrib):
     # partials would turn the masked zero cotangent into NaN
     ax = torch.where(iso, 1.0, alpha_x)
     ay = torch.where(iso, 1.0, alpha_y)
-    ma = torch.where(iso[..., None], m.new_tensor([0.0, 0.0, 1.0]), m)
+    z_axis = torch.zeros_like(m)  # made on the device, not copied to it
+    z_axis[..., 2] = 1.0
+    ma = torch.where(iso[..., None], z_axis, m)
     mz = torch.where(torch.abs(ma[..., 2]) < 1e-12, 1e-12, ma[..., 2])
     slope_x = -ma[..., 0] / (mz * torch.clamp(ax, min=1e-12))
     slope_y = -ma[..., 1] / (mz * torch.clamp(ay, min=1e-12))

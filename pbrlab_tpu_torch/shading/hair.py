@@ -73,11 +73,15 @@ def betam_to_v(beta_m):
     return torch.stack([v0, 0.25 * v0, 4.0 * v0, 4.0 * v0], dim=-1)
 
 
+# sqrt(pi / 8) rounded as float32 arithmetic rounds it (the JAX package's
+# jnp.sqrt of a float32), held exactly by a Python float
+_SQRT_PI_8 = float(torch.sqrt(torch.tensor(PI / 8.0, dtype=torch.float32)))
+
+
 def calc_s(beta_n):
     """Azimuthal roughness -> trimmed-logistic scale (hair-shader.cc:29-33)."""
     b2 = sqr(beta_n)
-    return torch.sqrt(torch.tensor(PI / 8.0, dtype=torch.float32)) * (
-        0.265 * beta_n + 1.194 * b2 + 5.372 * _ipow(b2, 11))
+    return _SQRT_PI_8 * (0.265 * beta_n + 1.194 * b2 + 5.372 * _ipow(b2, 11))
 
 
 def sigma_a_from_rgb(c, beta_n):

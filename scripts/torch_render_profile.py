@@ -19,8 +19,13 @@ turns (A, B, B, A). For each path the scene is rendered once at 32x32x1
 (builds the kernels, warms the allocator), then --reps times unprofiled
 (host clock around work that ends in a synchronize), then, unless
 --no-profile, once under torch.profiler; the idle share is 1 - device
-busy / the median unprofiled wall. The trace kernels' device time is
-printed in all and, for the cornellbox, mid, large, hair, instanced,
+busy / the median unprofiled wall. On the card `render_lanes_wavefront`
+runs its loop as CUDA graphs captured in the call, so the device kernels
+per sub-iteration are the graphs' nodes run, and the host launches (the
+runtime calls that queue work: kernel and graph launches, copies and
+sets) those of the phases' warm-ups and captures and the graph
+launches. The trace kernels' device time is printed in all and, for the
+cornellbox, mid, large, hair, instanced,
 dense and dense3 paths, the dense_v4 (with its dual), dense_v5 (with its
 dual), dense_v5l, dense_curve, dense_v5i, dense_v2 or dense_v3 kernels'
 alone (the legacy kernels by their names before and after their
@@ -52,6 +57,10 @@ V5L = ("v5l_kernel",)  # csrc/dense_v5.cu: dense_v5l
 # of them); older checkouts name them v1_kernel, v2_kernel and v3_kernel
 LEGACY = ("legacy_kernel", "v1_kernel", "v2_kernel", "v3_kernel")
 OWN = V4 + V5 + CURVE + V5I + V5L + LEGACY
+# the host calls that queue device work, counted as host launches
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
 # the kernels each path reports
 ONE = {"cornellbox": V4, "instanced": V5I, "large": V5L, "mid": V5,
        "hair": CURVE, "dense": LEGACY, "dense3": LEGACY}
@@ -63,10 +72,16 @@ def profile(path, run, size, spp, wall, iters, card):
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
         prof_wall, _ = run(size, spp)
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     count = sum(e.count for e in kernels)
+    # the host's launches: every CUDA runtime or libcuda call that queues work
+    # (a graph launch queues a whole phase)
+    host = {e.key: e.count for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.key in HOST_LAUNCHES}
     own = [e for e in kernels if any(k in e.key for k in OWN)]
     own_s = sum(e.self_device_time_total for e in own) / 1e6
     one = [e for e in own if any(k in e.key for k in ONE[path])]
@@ -79,6 +94,8 @@ def profile(path, run, size, spp, wall, iters, card):
           f"kernels {own_s:.3f} s ({own_s / busy * 100:.1f}% of busy), of "
           f"which {'/'.join(ONE[path])} {one_s:.3f} s ({one_s / busy * 100:.1f}% of busy, "
           f"{one_n} launches) ({card})")
+    print(f"  host launches {sum(host.values())} "
+          f"({sum(host.values()) / iters:.0f} per sub-iteration): {host}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e6:9.4f} s {e.count:8d}x "
               f"{e.key[:90]}")
