@@ -42,13 +42,19 @@ renders each path (`render_lanes_wavefront`: its loop as CUDA graphs,
 captured and replayed in the call) with every launch counter set to 0
 just before and read just after; phase 6 drives the user's entry points on the
 cornellbox (`entry_phase`): the CLI's `demo` at 512x512x8 with the auto
-k_volume (PNG checked), `render_scan` at 256x256x4, k_volume 3, with
-its launches counted (dense_v4 dual and any-hit, dense_v5 dual and
-closest) and held against `render`, `render_scan` card vs CPU at
+k_volume (PNG checked), `render_scan` at 256x256x4, k_volume 3 (its
+compiled program's phases as CUDA graphs, their captures and nodes
+printed), with its launches counted (dense_v4 dual and any-hit, dense_v5
+dual and closest) and held against `render`, `render_scan` card vs CPU at
 32x32x2, and a `ProgressiveRenderer` at 512x512 behind a
 `PreviewServer` (each pass against `render_sample`, the average of 3
-against `render_scan`, an HTTP edit, the served PNG, a checkpoint round
-trip); phase 7 the training and parallel paths (`training_phase`); phase
+against `render_scan`, an HTTP edit that captures nothing new, the
+served PNG, a checkpoint round trip); phase 7 the training and parallel
+paths (`training_phase`: the graphed gradient pass at 1024x1024x1, its
+walls, peak memory and launches against the `torch.utils.checkpoint`
+tape's, at most 1.5x its memory, the same image and loss, gradients in
+the band; card vs CPU gradients; the emission FD; `render_sharded`; the
+train step; two gloo ranks); phase
 8 the threaded-BVH backend (`bvh_phase`): the `bvh_trace` and
 `curve_bvh_trace` kernels (`csrc/bvh_walk.cu`, the JAX package's CPU
 walks) against their twins on phase 3's cornellbox and hair rays, card
@@ -59,7 +65,13 @@ and the cornellbox at "bvh" rendered at GRAPH_SIZE^2 x GRAPH_SPP through
 the graphs, every phase under `torch.cuda.set_sync_debug_mode("error")`,
 and through the private eager loop, the images bit-equal and the
 launches equal, with both walls, the capture cost, the nodes per graph
-and the peak memory printed.
+and the peak memory printed; then the scan path's programs
+(`scan_graph_phase`): `render_scan` at GRAPH_SIZE^2 x GRAPH_SPP on every
+phase-5 path, three progressive passes with an HTTP edit before the
+third, and the gradient pass at SCAN_GRAD_SIZE^2 x 1, graphed (under sync
+debug mode "error") and through the same phases op by op: bit-equal
+images, passes and loss, equal launches, gradients in the band, no
+capture made by the edit.
 Exits non-zero, printing no result, on any failure or without a
 CUDA card. The last lines are the kernels' JSON record, the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -112,6 +124,7 @@ DIST_SIZE, DIST_SPP = 128, 2  # two ranks on the card, gloo
 BVH_PATHS = ("cornellbox", "hair")  # phase 8: these at tri_backend="bvh"
 BVH_SIZE, BVH_SPP = 256, 8  # phase 8's renders
 GRAPH_SIZE, GRAPH_SPP = 128, 2  # phase 9: graphed and eager renders
+SCAN_GRAD_SIZE = 64  # phase 9: graphed and eager gradient passes
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
 N_SINGLE = 24576  # default volume window (3/8 of the lanes): substeps 2-3
 RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
@@ -1182,14 +1195,7 @@ def graph_phase(scenes, file_scene, card):
     from pbrlab_tpu_torch.render import graphs
     from pbrlab_tpu_torch.render.integrator import _wavefront
 
-    class Checked(graphs.GraphRunner):
-        def run(self, name, phase):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                super().run(name, phase)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-
+    Checked = checked_runner()
     renders = [(name, scenes[name], None) for name in PATHS]
     renders += [(f"file {backend}", file_scene, backend)
                 for backend in FILE_RENDERS]
@@ -1242,6 +1248,124 @@ def graph_phase(scenes, file_scene, card):
             raise AssertionError(f"{name}: no graph was replayed")
         out[name] = rec
     return out
+
+
+def scan_graph_phase(scenes, file_scene, names, card):
+    """Phase 9, the scan path's compiled programs against their phases op
+    by op: `render_scan` at GRAPH_SIZE^2 x GRAPH_SPP on every phase-5 path,
+    three progressive passes of the cornellbox at GRAPH_SIZE^2 with an
+    HTTP edit before the third, and the gradient pass of the cornellbox at
+    SCAN_GRAD_SIZE^2 x 1, each once through a `Programs` of `GraphRunner`s
+    whose every phase runs under sync debug mode "error" and once through
+    `EagerRunner`s. The images, the passes and the loss must be bit-equal
+    and the launches equal; the gradients within GRAD_BAND of the largest
+    eager entry (the backward's index_add_ atomics order the sums anew);
+    the edit must capture nothing new. Prints walls, captures, nodes and
+    peak allocated memory."""
+    import urllib.request
+
+    from pbrlab_tpu_torch.app.viewer import PreviewServer
+    from pbrlab_tpu_torch.render import graphs
+    from pbrlab_tpu_torch.render.integrator import render_scan
+    from pbrlab_tpu_torch.render.progressive import ProgressiveRenderer
+
+    runners = {"graphs": checked_runner(), "eager": graphs.EagerRunner}
+    size, spp = GRAPH_SIZE, GRAPH_SPP
+
+    def launches():
+        return {f"{m}.{k}": v for m, c in graphs.COUNTERS.items()
+                for k, v in c.items() if v}
+
+    def zero():
+        for c in graphs.COUNTERS.values():
+            for k in c:
+                c[k] = 0
+
+    renders = [(name, scenes[name], None) for name in PATHS]
+    renders += [(f"file {backend}", file_scene, backend)
+                for backend in FILE_RENDERS]
+    for name, scene, backend in renders:
+        rec = {}
+        for kind, runner in runners.items():
+            programs = graphs.Programs(runner=runner)
+            zero()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            img = render_scan(scene, size, size, spp, seed=SEED,
+                              tri_backend=backend, programs=programs,
+                              **SETTINGS)
+            torch.cuda.synchronize()
+            rec[kind] = (time.perf_counter() - t0, img.cpu(), launches(),
+                         torch.cuda.max_memory_allocated(), programs)
+        g, e = rec["graphs"], rec["eager"]
+        print(f"graphs scan {name} {size}x{size}x{spp}: graphed {g[0]:.3f} "
+              f"s, eager {e[0]:.3f} s, max_abs_err "
+              f"{(g[1] - e[1]).abs().max().item()}, peak allocated "
+              f"{g[3] / 2**20:.1f} / {e[3] / 2**20:.1f} MiB, launches {g[2]}"
+              f" ({card})")
+        print(f"  {program_line(g[4])}")
+        if not (torch.equal(g[1], e[1]) and g[2] == e[2] and g[1].sum() > 0):
+            raise AssertionError(f"scan {name}: the graphed render_scan "
+                                 "differs from its phases op by op")
+
+    scene = scenes["cornellbox"]
+    passes = {}
+    for kind, runner in runners.items():
+        r = ProgressiveRenderer(scene, size, size, seed=SEED,
+                                material_names=names["cornellbox"],
+                                **SETTINGS)
+        r.programs = graphs.Programs(runner=runner)
+        srv = PreviewServer(r, max_pass=8)
+        port = srv.start(port=0)
+        try:
+            accums = []
+            for i in range(3):
+                if i == 2:
+                    captured = captures(r.programs)
+                    urllib.request.urlopen(urllib.request.Request(
+                        f"http://127.0.0.1:{port}/edit", data=json.dumps(
+                            {"material": "Wall_White", "param": "base_color",
+                             "value": [0.1, 0.9, 0.1]}).encode(),
+                        method="POST"), timeout=30).read()
+                r.step()
+                accums.append(r.accum.copy())
+        finally:
+            srv.stop()
+        passes[kind] = (accums, r.pass_times, captured, captures(r.programs),
+                        r.programs)
+    g, e = passes["graphs"], passes["eager"]
+    same = all(np.array_equal(a, b) for a, b in zip(g[0], e[0]))
+    print(f"graphs progressive {size}x{size}, 3 passes, an HTTP edit before "
+          f"the third: bit-equal {same}; pass times graphed "
+          f"{[round(t, 4) for t in g[1]]} s, eager "
+          f"{[round(t, 4) for t in e[1]]} s; graphs {g[2]} before the edit, "
+          f"{g[3]} after ({card})")
+    print(f"  {program_line(g[4])}")
+    if not same or g[3] != g[2] or np.array_equal(g[0][2], g[0][1]):
+        raise AssertionError("the graphed progressive passes differ from "
+                             "the eager ones, or the edit recaptured")
+
+    rec = {}
+    for kind, runner in runners.items():
+        programs = graphs.Programs(runner=runner)
+        rec[kind] = grad_pass(scene, SCAN_GRAD_SIZE, counters=graphs.COUNTERS,
+                              programs=programs, **SETTINGS)
+        rec[kind]["programs"] = programs
+    g, e = rec["graphs"], rec["eager"]
+    same = torch.equal(g["img"], e["img"]) and torch.equal(g["loss"],
+                                                           e["loss"])
+    print(f"graphs grad pass {SCAN_GRAD_SIZE}x{SCAN_GRAD_SIZE}x1: image and "
+          f"loss bit-equal {same}, launches {g['counts']}; forward "
+          f"{g['fwd']:.3f} / {e['fwd']:.3f} s, backward {g['bwd']:.3f} / "
+          f"{e['bwd']:.3f} s, peak allocated {g['peak'] / 2**20:.1f} / "
+          f"{e['peak'] / 2**20:.1f} MiB, graphed / eager ({card})")
+    print(f"  {program_line(g['programs'])}")
+    if not same or g["counts"] != e["counts"]:
+        raise AssertionError("the graphed gradient pass differs from its "
+                             "phases op by op")
+    grads_agree(f"graphs grad pass {SCAN_GRAD_SIZE}x{SCAN_GRAD_SIZE}x1 "
+                "graphed vs eager", g["grads"], e["grads"], GRAD_BAND, card)
 
 
 def render_parity(name, scene_np, scene, fn=None, **kw):
@@ -1310,6 +1434,7 @@ def entry_phase(counters, scene_np, scene, names, card):
     from pbrlab_tpu_torch.app.viewer import PreviewServer
     from pbrlab_tpu_torch.render.integrator import (render, render_sample,
                                                     render_scan)
+    from pbrlab_tpu_torch.render.graphs import Programs
     from pbrlab_tpu_torch.render.progressive import ProgressiveRenderer
     from pbrlab_tpu_torch.utils import log as plog
     from pbrlab_tpu_torch.utils.profiling import measure_sss_truncation
@@ -1350,11 +1475,15 @@ def entry_phase(counters, scene_np, scene, names, card):
     for c in counters.values():
         for key in c:
             c[key] = 0
+    programs = Programs()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     scan = render_scan(scene, SCAN_SIZE, SCAN_SIZE, SCAN_SPP, seed=SEED,
-                       k_volume=3, **steps).cpu().numpy()
+                       k_volume=3, programs=programs, **steps).cpu().numpy()
     scan_wall = time.perf_counter() - t0
+    print(f"entry scan program: {program_line(programs)}, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
     launches = {"v4.dual": counters["v4"]["dual"],
                 "v4.single": counters["v4"]["single"],
                 "v5.v5_dual": counters["v5"]["v5_dual"],
@@ -1417,6 +1546,7 @@ def entry_phase(counters, scene_np, scene, names, card):
         if not np.array_equal(avg, want):
             raise AssertionError("3 progressive passes are not "
                                  "render_scan(spp=3)")
+        captured = captures(r.programs)
         urllib.request.urlopen(urllib.request.Request(
             base + "/edit", data=json.dumps(
                 {"material": "Wall_White", "param": "base_color",
@@ -1426,6 +1556,8 @@ def entry_phase(counters, scene_np, scene, names, card):
         if r.num_passes != 1 or np.array_equal(edited, avg):
             raise AssertionError("the HTTP edit did not reset the passes "
                                  "and change the image")
+        if captures(r.programs) != captured:
+            raise AssertionError("the edit made the renderer capture anew")
         served = png_pixels(urllib.request.urlopen(base + "/image.png",
                                                    timeout=30).read())
         if served.shape != (size, size, 3):
@@ -1445,7 +1577,8 @@ def entry_phase(counters, scene_np, scene, names, card):
           f"render_scan(spp=3), an HTTP /edit reset to pass 1 with a new "
           f"image, /image.png {size}x{size}, checkpoint round trip; "
           f"pass times {[round(t, 3) for t in r.pass_times]} s; phase "
-          f"wall {wall:.3f} s ({card})")
+          f"wall {wall:.3f} s; the renderer's program: "
+          f"{program_line(r.programs)}, unchanged by the edit ({card})")
     return launches
 
 
@@ -1497,13 +1630,19 @@ def with_leaves(scene):
     return s, leaves
 
 
-def grad_pass(scene, size, max_steps, k_volume, counters=None):
+def grad_pass(scene, size, max_steps, k_volume, counters=None,
+              programs=None, tape=False):
     """The MSE of `render_lanes(remat=True)` (size^2, one sample, seed 7)
     against the same render at base_color x 0.5, and its backward to the
-    eight leaves. Returns ({key: gradient or None}, forward wall,
-    backward wall, forward launch counts, launch counts after the
-    backward); the counts when `counters` is given."""
-    from pbrlab_tpu_torch.render.integrator import render_lanes
+    eight leaves: through the compiled program kept in `programs` (None:
+    one for the call), or with `tape` through the `torch.utils.checkpoint`
+    tape it replaced. Returns {"grads": {key: gradient or None}, "fwd",
+    "bwd": walls, "img", "loss", "peak": peak allocated bytes from the
+    forward on, "fwd_counts", "counts": launch counts forward and after
+    the backward (when `counters` is given)}."""
+    from pbrlab_tpu_torch.render.integrator import (_render_lanes_tape,
+                                                    render_lanes)
+    from pbrlab_tpu_torch.scene.scene import build_fat_tables
 
     dev = scene["aabb_min"].device
     kw = dict(max_steps=max_steps, k_volume=k_volume)
@@ -1522,8 +1661,15 @@ def grad_pass(scene, size, max_steps, k_volume, counters=None):
         for key in c:
             c[key] = 0
     sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    img = render_lanes(s, size, size, 0, SEED, remat=True, **kw)
+    if tape:
+        img = _render_lanes_tape(build_fat_tables(s), size, size, 0, SEED,
+                                 max_steps, None, True, 2, k_volume, None)
+    else:
+        img = render_lanes(s, size, size, 0, SEED, remat=True,
+                           programs=programs, **kw)
     loss = ((img - target) ** 2).mean()
     sync(dev)
     fwd = time.perf_counter() - t0
@@ -1532,8 +1678,71 @@ def grad_pass(scene, size, max_steps, k_volume, counters=None):
     loss.backward()
     sync(dev)
     bwd = time.perf_counter() - t0
-    return ({k: None if v.grad is None else v.grad.detach()
-             for k, v in leaves.items()}, fwd, bwd, fwd_counts, counts())
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    return {"grads": {k: None if v.grad is None else v.grad.detach()
+                      for k, v in leaves.items()},
+            "fwd": fwd, "bwd": bwd, "img": img.detach(),
+            "loss": loss.detach(), "peak": peak, "fwd_counts": fwd_counts,
+            "counts": counts()}
+
+
+def grads_agree(name, got, want, band, card):
+    """Each leaf's gradient within `band` of the largest `want` entry
+    (+1e-6), read on both sides or on neither, else raise."""
+    worst = {}
+    for key in want:
+        if got[key] is None or want[key] is None:
+            if (got[key] is None) != (want[key] is None):
+                raise AssertionError(f"{name} {key}: read on one side only")
+            continue
+        g, w = got[key].cpu().numpy(), want[key].cpu().numpy()
+        scale = np.abs(w).max()
+        worst[key] = float(np.abs(g - w).max() / max(scale, 1e-30))
+        if not (np.abs(g - w) <= band * scale + 1e-6).all():
+            raise AssertionError(f"{name} {key} gradient off the band "
+                                 f"(max |diff| / max |ref| {worst[key]:.3g})")
+    print(f"{name}: max |diff| / max |ref| per leaf {worst} (band {band}) "
+          f"({card})")
+
+
+def captures(programs):
+    """Graphs captured by the programs of a `Programs`."""
+    return sum(len(getattr(p.runner, "graphs", ()))
+               for p in programs.programs.values())
+
+
+def program_line(programs):
+    """Each program's phases: nodes, capture + instantiate seconds,
+    replays (a graph runner's), as one line."""
+    parts = []
+    for prog in programs.programs.values():
+        runner = prog.runner
+        if not hasattr(runner, "graphs"):
+            continue
+        nodes = runner.nodes()
+        parts.append(", ".join(
+            f"{ph} {nodes.get(ph)} nodes / "
+            f"{st['capture_s'] + st['instantiate_s']:.3f} s / "
+            f"{st['replays']} replays" for ph, st in runner.stats.items()))
+    return "; ".join(parts) or "no graphs"
+
+
+def checked_runner():
+    """A `GraphRunner` class whose every phase (warm-up, capture, replay)
+    runs under `torch.cuda.set_sync_debug_mode("error")`: a phase that
+    synchronised raises (the host's reads sit between phases)."""
+    from pbrlab_tpu_torch.render import graphs
+
+    class Checked(graphs.GraphRunner):
+        def run(self, name, phase):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                super().run(name, phase)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    return Checked
 
 
 def sync(dev):
@@ -1565,25 +1774,48 @@ def training_phase(counters, scene_np, scene, card):
     scene over two shards; two ranks on the card (gloo) against `render`.
     Returns the gradient pass's launch counts after the backward."""
     from pbrlab_tpu_torch.parallel import sharding
-    from pbrlab_tpu_torch.render.integrator import render, render_sample
+    from pbrlab_tpu_torch.render.graphs import Programs
+    from pbrlab_tpu_torch.render.integrator import render, render_lanes
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
 
     dev = scene["aabb_min"].device
-    torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
-    grads, fwd, bwd, fwd_counts, counts = grad_pass(
-        scene, GRAD_SIZE, counters=counters, **SETTINGS)
-    peak = torch.cuda.max_memory_allocated(dev)
+    programs = Programs()
+    graphed = grad_pass(scene, GRAD_SIZE, counters=counters,
+                        programs=programs, **SETTINGS)
+    grads, counts, fwd_counts = (graphed["grads"], graphed["counts"],
+                                 graphed["fwd_counts"])
     norms = {k: None if g is None else float(g.abs().max())
              for k, g in grads.items()}
-    print(f"grad pass: render_lanes(remat=True) {GRAD_SIZE}x{GRAD_SIZE}x1 "
-          f"max_steps={SETTINGS['max_steps']} k_volume="
-          f"{SETTINGS['k_volume']}, MSE to base_color x 0.5: forward "
-          f"{fwd:.3f} s, backward {bwd:.3f} s, peak allocated "
-          f"{peak / 2**30:.3f} GiB ({(peak - base_mem) / 2**30:.3f} GiB above "
-          f"the {base_mem / 2**30:.3f} GiB of the scenes), launches forward "
-          f"{fwd_counts}, after the backward {counts}; max |grad| {norms} "
-          f"({card})")
+    line = program_line(programs)
+    del programs  # the eager pass's peak without the program's buffers
+    torch.cuda.empty_cache()
+    tape = grad_pass(scene, GRAD_SIZE, counters=counters, tape=True,
+                     **SETTINGS)
+    for kind, rec in (("graphed", graphed), ("eager", tape)):
+        peak = rec["peak"]
+        print(f"grad pass {kind}: render_lanes(remat=True) {GRAD_SIZE}x"
+              f"{GRAD_SIZE}x1 max_steps={SETTINGS['max_steps']} k_volume="
+              f"{SETTINGS['k_volume']}, MSE to base_color x 0.5: forward "
+              f"{rec['fwd']:.3f} s, backward {rec['bwd']:.3f} s, peak "
+              f"allocated {peak / 2**30:.3f} GiB "
+              f"({(peak - base_mem) / 2**30:.3f} GiB above the "
+              f"{base_mem / 2**30:.3f} GiB of the scenes), "
+              f"launches forward {rec['fwd_counts']}, after the backward "
+              f"{rec['counts']}; max |grad| "
+              f"{norms if kind == 'graphed' else ''} ({card})")
+    print(f"grad pass graphed program: {line} ({card})")
+    ratio = graphed["peak"] / tape["peak"]
+    same = (torch.equal(graphed["img"], tape["img"])
+            and torch.equal(graphed["loss"], tape["loss"]))
+    print(f"grad pass graphed vs eager: image and loss bit-equal {same}, "
+          f"launches equal {graphed['counts'] == tape['counts']}, peak "
+          f"allocated {ratio:.3f}x ({card})")
+    if not same or graphed["counts"] != tape["counts"] or ratio > 1.5:
+        raise AssertionError("the graphed gradient pass differs from the "
+                             "eager one or holds over 1.5x its memory")
+    grads_agree("grad pass graphed vs eager gradients", grads,
+                tape["grads"], GRAD_BAND, card)
     bad = [k for k, g in grads.items()
            if g is not None and not torch.isfinite(g).all()]
     if bad or not norms["base_color"] or not norms["face_emission"]:
@@ -1597,39 +1829,29 @@ def training_phase(counters, scene_np, scene, card):
 
     t0 = time.perf_counter()
     size, steps = GRAD_PARITY["size"], GRAD_PARITY["max_steps"]
-    gpu = grad_pass(scene, size, steps, SETTINGS["k_volume"])[0]
+    gpu = grad_pass(scene, size, steps, SETTINGS["k_volume"])["grads"]
     cpu = grad_pass(scene_from_numpy(scene_np, "cpu"), size, steps,
-                    SETTINGS["k_volume"])[0]
-    worst = {}
-    for key in gpu:
-        if gpu[key] is None or cpu[key] is None:
-            if (gpu[key] is None) != (cpu[key] is None):
-                raise AssertionError(f"{key}: read on one device only")
-            continue
-        g, c = gpu[key].cpu().numpy(), cpu[key].numpy()
-        scale = np.abs(c).max()
-        worst[key] = float(np.abs(g - c).max() / max(scale, 1e-30))
-        if not (np.abs(g - c) <= GRAD_BAND * scale + 1e-6).all():
-            raise AssertionError(f"{key} gradient: card vs CPU off the band "
-                                 f"(max |diff| / max |cpu| {worst[key]:.3g})")
-    print(f"grad parity: card vs CPU {size}x{size}x1 max_steps={steps}, max "
-          f"|diff| / max |cpu| per leaf {worst} (band {GRAD_BAND}), "
-          f"{time.perf_counter() - t0:.3f} s ({card})")
+                    SETTINGS["k_volume"])["grads"]
+    grads_agree(f"grad parity: card vs CPU {size}x{size}x1 max_steps="
+                f"{steps}, {time.perf_counter() - t0:.3f} s", gpu, cpu,
+                GRAD_BAND, card)
 
     t0 = time.perf_counter()
     kw = dict(seed=SEED, **SETTINGS)
     x = torch.tensor(1.0, device=dev, requires_grad=True)
 
-    def fd_loss(scale):
+    def fd_loss(scale):  # the graphed gradient pass; no grad: the forward
         s = {**scene, "face_emission": scene["face_emission"] * scale}
-        return render_sample(s, FD_SIZE, FD_SIZE, 0, **kw).sum()
+        return render_lanes(s, FD_SIZE, FD_SIZE, 0, remat=True,
+                            **kw).sum()
 
     g = float(torch.autograd.grad(fd_loss(x), [x])[0])
     with torch.no_grad():
         fd = (float(fd_loss(torch.tensor(1.0 + FD_EPS, device=dev)))
               - float(fd_loss(torch.tensor(1.0 - FD_EPS, device=dev)))) / (
                   2 * FD_EPS)
-    print(f"emission FD: {FD_SIZE}x{FD_SIZE}x1 d sum(img) / d scale: "
+    print(f"emission FD: {FD_SIZE}x{FD_SIZE}x1 d sum(img) / d scale "
+          f"(render_lanes(remat=True), graphed): "
           f"autograd {g:.6g}, central difference (eps {FD_EPS}) {fd:.6g}, "
           f"rel diff {abs(g - fd) / abs(fd):.3g} (rtol 1e-2), "
           f"{time.perf_counter() - t0:.3f} s ({card})")
@@ -1663,8 +1885,8 @@ def training_phase(counters, scene_np, scene, card):
     moved = float((s["texture_atlas"] - quad["texture_atlas"]).abs().max())
     print(f"train step: textured quad {TRAIN_SIZE}x{TRAIN_SIZE}x1 towards "
           f"the atlas x 0.5, {TRAIN_STEPS} steps on {mesh}: losses {losses}, "
-          f"atlas moved {moved:.4g}, {time.perf_counter() - t0:.3f} s "
-          f"({card})")
+          f"atlas moved {moved:.4g}, {time.perf_counter() - t0:.3f} s; its "
+          f"kept program: {program_line(step.programs)} ({card})")
     if not (losses[-1] < 0.9 * losses[0] and moved > 1e-4):
         raise AssertionError("the train step did not lower the loss")
 
@@ -1797,9 +2019,10 @@ def graphs_only():
     t0 = time.perf_counter()
     path, _ = cuda_lib.build_library()
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
-    _, scenes, _, _, file_scene = path_scenes(torch.device("cuda:0"))
+    _, scenes, names, _, file_scene = path_scenes(torch.device("cuda:0"))
     t0 = time.perf_counter()
     graph_phase(scenes, file_scene, card)
+    scan_graph_phase(scenes, file_scene, names, card)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     print(card)
     return 0
@@ -1943,6 +2166,7 @@ def main():
     # phase 9: the render loop's CUDA graphs against the eager loop
     t0 = time.perf_counter()
     graph_phase(scenes, file_scene, card)
+    scan_graph_phase(scenes, file_scene, names, card)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases took {time.perf_counter() - t_start:.1f} s")
     # v1 is on no render path, in JAX as here: its row carries the launches

@@ -35,10 +35,12 @@ def hash_u32(x):
 
 def seed_state(pixel_id, sample_id, seed=0):
     """Decorrelated per-lane states from (pixel, sample, seed) keys.
-    Arguments are int tensors (or Python ints) holding uint32 values."""
+    Arguments are int tensors (or Python ints) holding uint32 values; a
+    seed tensor (0-dim, on the lanes' device) is read on the device."""
     pixel_id = torch.as_tensor(pixel_id).to(torch.int64) & _MASK
     sample_id = torch.as_tensor(sample_id).to(torch.int64) & _MASK
-    seed = int(seed) & _MASK
+    seed = (seed.to(torch.int64) if torch.is_tensor(seed)
+            else int(seed)) & _MASK
     h = hash_u32(pixel_id ^ ((seed * _GOLDEN) & _MASK))
     return hash_u32(h ^ _u32(sample_id * 0x85EBCA6B))
 

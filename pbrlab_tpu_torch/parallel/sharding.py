@@ -19,6 +19,7 @@ from typing import Dict, List
 
 import torch
 
+from ..render.graphs import Programs
 from ..render.integrator import _mean, render_lanes, render_lanes_wavefront
 from ..scene.scene import build_fat_tables
 
@@ -103,7 +104,10 @@ def train_step_builder(width: int, height: int, spp: int,
     difference of its mean to the target (padded lanes repeat the last
     pixel and its target), the shards' gradients of GRAD_KEYS and
     SCENE_KEYS are summed, and each leaf steps by -lr * gradient,
-    clipped at 0. The fat tables are built inside from the leaves.
+    clipped at 0. The fat tables are built inside from the leaves. The
+    gradient passes run through compiled programs (CUDA graphs on the
+    card, forward and per-depth backward) that the step keeps from one
+    call to the next, in `train_step.programs`.
     `new_scene` is a new dict on the scene's devices; `scene` is not
     changed. The reference's training surface is its GUI edit loop
     (pc/pc-common.h EditQueue); here the same parameters descend a
@@ -111,6 +115,7 @@ def train_step_builder(width: int, height: int, spp: int,
     n = width * height
     lanes = padded_lanes(n, len(mesh))
     per = lanes.shape[0] // len(mesh)
+    programs = Programs()
 
     def train_step(scene: Dict, target: torch.Tensor):
         tgt = target.detach().reshape(-1, 3)
@@ -131,7 +136,8 @@ def train_step_builder(width: int, height: int, spp: int,
             for sample_id in range(spp):
                 acc = acc + render_lanes(s, width, height, sample_id, 0,
                                          max_steps, lane, remat=True,
-                                         k_volume=k_volume)
+                                         k_volume=k_volume,
+                                         programs=programs)
             shard_loss = ((acc / spp - tgt[i * per:(i + 1) * per].to(dev))
                           ** 2).sum()
             g = torch.autograd.grad(shard_loss, list(leaves.values()),
@@ -147,4 +153,5 @@ def train_step_builder(width: int, height: int, spp: int,
             dst[key] = torch.clamp(value.detach() - lr * grads[key], min=0.0)
         return loss, new_scene
 
+    train_step.programs = programs
     return train_step

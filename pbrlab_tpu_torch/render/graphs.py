@@ -1,6 +1,8 @@
-"""How `render_lanes_wavefront` runs its phases: op by op, or as CUDA
-graphs (the port of the JAX package's `jax.jit` + `lax.while_loop`
-render, pbrlab_tpu/render/integrator.py:1230-1301).
+"""How the integrator's compiled programs run their phases: op by op,
+or as CUDA graphs (the port of the JAX package's `jax.jit` programs:
+the `lax.while_loop` render, pbrlab_tpu/render/integrator.py:1230-1301,
+and the `lax.scan` of `render_lanes` / `render_scan`, :917-983 and
+:1312-1326, forward and, under `jax.checkpoint`, its gradient).
 
 The render loop (`integrator._WavefrontLoop`) splits the JAX while
 loop's body into phases over buffers it allocates once per call; each
@@ -18,6 +20,16 @@ graph of a call shares one memory pool (each phase's temporaries die
 within it, so any replay order is safe) and lives only for the call.
 A capture or replay error raises; nothing falls back to the eager
 phase.
+
+A render call's loop lives for the call. The scan path's program
+(`integrator._LanesProgram`) outlives one: `Programs` is the counterpart
+of `jax.jit`'s cache, a program per set of static arguments, kept by
+the caller that renders many times (one `render_scan` call, the
+progressive renderer, the train step) and never by this module. Each
+program owns its buffers and one runner, so its phases are captured
+once and replayed by every later call; what changes between calls (the
+sample id, the seed, the material columns) is written into its buffers
+(`put`, `copy_`).
 
 Launch counts: the kernel wrappers add one to their module's `LAUNCHES`
 where they launch, which under capture records and does not launch. A
@@ -44,6 +56,43 @@ COUNTERS = {"v4": dense_v4.LAUNCHES, "v5": dense_v5.LAUNCHES,
 
 def _counts():
     return {(m, k): v for m, c in COUNTERS.items() for k, v in c.items()}
+
+
+class Programs:
+    """Compiled programs by their static arguments (`jax.jit`'s cache).
+    `get(key, make)` returns the program made for `key` (its device
+    first), making it with `make(runner)` the first time, a runner of its
+    own with it. `runner` makes each program's runner
+    (None: a `GraphRunner` for a program on a CUDA device, else an
+    `EagerRunner`); a test or `chip_smoke.py` passes another."""
+
+    def __init__(self, runner=None):
+        self._runner = runner
+        self.programs = {}
+
+    def get(self, key, make):
+        if key not in self.programs:
+            dev = key[0]
+            if self._runner is not None:
+                runner = self._runner()
+            elif dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    runner = GraphRunner()
+            else:
+                runner = EagerRunner()
+            self.programs[key] = make(runner)
+        return self.programs[key]
+
+
+def put(dst, values):
+    """Write host integers into the int64 device tensor `dst` with no
+    host sync: on a card through a fresh pinned tensor and a
+    non-blocking copy (the host allocator keeps it until the copy ran)."""
+    if dst.device.type != "cuda":
+        dst.copy_(torch.tensor(values, dtype=dst.dtype))
+        return
+    host = torch.tensor(values, dtype=dst.dtype, pin_memory=True)
+    dst.copy_(host, non_blocking=True)
 
 
 class EagerRunner:

@@ -12,10 +12,14 @@ lane's result does not depend on where it sits in the wavefront.
 
 The JAX package's `lax.while_loop` / `lax.scan` / `lax.cond` are Python
 control flow here. The loop test, the volume-window test and the scan's
-"any lane in volume mode" test read a device value, one host sync each
+"any lane in volume mode" test read a device value, one host read each
 per trip. On the card the while loop's body runs as CUDA graphs of its
 branches (`_WavefrontLoop`, `render.graphs`), the counterpart of the
-JAX package's one compiled program; the scan path runs op by op.
+JAX package's compiled `render`; the scan path's steps run as the
+captured phases of a program that outlives a call (`_LanesProgram`,
+kept in a `render.graphs.Programs`), forward and, under autograd, its
+per-depth backward: the counterparts of the jitted `render_scan` and of
+the train step's `jax.value_and_grad`.
 
 Gradients flow through `render_lanes` (and so `render_sample`) by torch
 autograd, to the material, emission and texture leaves the fat tables
@@ -25,7 +29,7 @@ point, the sampled scatter distance and the pdf denominators; see
 `render_lanes`), and the trace kernels run outside autograd. The
 persistent-lane `render_lanes_wavefront` and `render_scan` run under
 `torch.no_grad()`: they are forward-only, as the JAX package's while
-loop is.
+loop is; gradients go through `render_lanes` and `render_sample`.
 
 The scan path renders one sample of every pixel per `render_lanes` call:
 `max_steps` full steps, each followed by `k_volume` unwindowed volume
@@ -59,6 +63,8 @@ The JAX package's other PBRLAB_* environment knobs are not ported
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import NamedTuple
 
 import torch
@@ -81,7 +87,7 @@ from ..shading import hair, principled
 from ..shading.principled import PrincipledBsdf
 from ..shading.sss import sample_scatter_distance, scattering_coefficients
 from .camera import generate_rays
-from .graphs import EagerRunner, GraphRunner
+from .graphs import EagerRunner, GraphRunner, Programs, put
 
 MODE_SURFACE = 0
 MODE_VOLUME = 1
@@ -623,10 +629,17 @@ def init_state(scene, width: int, height: int, sample_id, seed,
         nee_maxt=torch.full((n,), -1.0, device=dev))
 
 
+# the tables `build_fat_tables` packs from the differentiable leaves (the
+# material columns, face_emission, texture_atlas): a render's gradient
+# reaches the leaves through them
+FAT_KEYS = ("mat_fat", "face_fat", "iface_fat", "local_fat", "light_fat",
+            "texture_quad")
+
+
 def render_lanes(scene, width: int, height: int, sample_id, seed=0,
                  max_steps: int = 32, lane=None, remat: bool = False,
                  sort_every: int = 2, k_volume: int = 0,
-                 tri_backend: str | None = None):
+                 tri_backend: str | None = None, programs=None):
     """One sample for pixel ids `lane` (None: every pixel) -> radiance
     [n_lanes, 3] in lane order, differentiable.
 
@@ -639,6 +652,12 @@ def render_lanes(scene, width: int, height: int, sample_id, seed=0,
     still alive after max_steps stops where it is. The last step's
     deferred NEE is answered by one any-hit trace. `tri_backend` forces
     the triangle backend (see `wavefront_step`).
+
+    The steps run as the phases of a compiled program
+    (`_LanesProgram`): CUDA graphs on a CUDA scene, op by op on the CPU.
+    `programs` (`render.graphs.Programs`) keeps the program for later
+    calls with the same static arguments, as `jax.jit`'s cache does; None
+    makes one for this call.
 
     Gradients reach the scene's material, `face_emission` and
     `texture_atlas` leaves: the fat tables are built here from them when
@@ -653,15 +672,36 @@ def render_lanes(scene, width: int, height: int, sample_id, seed=0,
     gradients in the JAX package); g / detach(p) is equal in value and
     its derivative's expectation is the transport derivative.
 
-    remat=True runs each depth (the full step, its substeps and the
-    compaction) under `torch.utils.checkpoint`: the backward keeps one
-    packed state a depth and recomputes the depth's activations, so the
-    trace kernels launch once more in the backward. The RNG is
-    counter-based and rides in the state, and the substeps' host sync
-    takes the same branch again, so the recompute gives the same bits
-    and the same gradients as remat=False."""
+    remat=True differentiates through the program, the counterpart of
+    `lax.scan(jax.checkpoint(body))`'s VJP: the forward keeps one packed
+    state a depth, and the backward recomputes each depth's activations
+    from it, last depth first, one phase a depth (so the trace kernels
+    launch once more). The RNG is counter-based and rides in the state,
+    and the recompute takes the forward's recorded substep branch, so it
+    gives the same bits; the gradients are remat=False's, whose eager
+    autograd tape keeps every depth's activations."""
     if "mat_fat" not in scene:
         scene = build_fat_tables(scene)
+    tables = [scene[k] for k in FAT_KEYS if k in scene]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tables)
+    if grad and not remat:
+        return _render_lanes_tape(scene, width, height, sample_id, seed,
+                                  max_steps, lane, False, sort_every,
+                                  k_volume, tri_backend)
+    prog = _lanes_program(programs or Programs(), scene, width, height,
+                          lane, max_steps, sort_every, k_volume, tri_backend)
+    if grad:
+        return _LanesGrad.apply(prog, scene, sample_id, seed, lane, *tables)
+    prog.forward(scene, sample_id, seed, lane)
+    return prog.out.clone()
+
+
+def _render_lanes_tape(scene, width, height, sample_id, seed, max_steps,
+                       lane, remat, sort_every, k_volume, tri_backend):
+    """`render_lanes` op by op on autograd's eager tape (the gradient of
+    remat=False); with remat, each depth under `torch.utils.checkpoint`,
+    which `chip_smoke.py` and the tests hold the program's backward
+    against. The substeps' test reads the device once a depth."""
     state = init_state(scene, width, height, sample_id, seed, lane)
     n = state.org.shape[0]
 
@@ -688,6 +728,13 @@ def render_lanes(scene, width: int, height: int, sample_id, seed=0,
         torch.full((n,), EPS, device=state.org.device),
         torch.where(nee_active, state.nee_maxt, -1.0).detach(),
         backend=tri_backend)
+    return _finish(state, occ, sort_every)
+
+
+def _finish(state, occ, sort_every):
+    """The last deferred NEE's answer `occ` added, non-finite sums
+    zeroed, and with sort_every the rows scattered back to lane order."""
+    nee_active = state.nee_maxt >= 0.0
     contribution = state.contribution + torch.where(
         (nee_active & ~occ)[..., None], state.nee_contrib, 0.0)
     contribution = torch.where(torch.isfinite(contribution), contribution,
@@ -696,6 +743,263 @@ def render_lanes(scene, width: int, height: int, sample_id, seed=0,
         contribution = torch.zeros_like(contribution).index_copy_(
             0, state.lane.to(torch.int64), contribution)
     return contribution
+
+
+def _tensors(tree, path=()):
+    """(path, tensor) of a scene dict, nested dicts included."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _tensors(val, path + (key,))
+        else:
+            yield path + (key,), val
+
+
+def _own(tree):
+    """A copy of a scene dict's tensors, detached (nested dicts too)."""
+    return {k: _own(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _lanes_program(programs, scene, width, height, lane, max_steps,
+                   sort_every, k_volume, tri_backend):
+    """The `_LanesProgram` of these static arguments, from `programs`."""
+    n = width * height if lane is None else lane.shape[0]
+    dev = scene["mat_fat"].device
+    shapes = tuple((path, tuple(t.shape), t.dtype)
+                   for path, t in _tensors(scene))
+    key = (dev, "render_lanes", width, height, n, max_steps, sort_every,
+           k_volume, tri_backend, shapes)
+    return programs.get(key, lambda runner: _LanesProgram(
+        scene, width, height, n, max_steps, sort_every, k_volume,
+        tri_backend, runner))
+
+
+class _LanesProgram:
+    """`render_lanes`'s compiled program: the JAX package's `lax.scan`
+    body (pbrlab_tpu/render/integrator.py:938-983) as phases over
+    buffers it allocates once, so CUDA graphs of them replay on every
+    later call. Its scene is its own copy of the caller's tensors (fat
+    tables included), refreshed in place by `load`; the sample id and
+    the seed ride in `keys` and the pixel ids in `lane`, device buffers
+    that (I) reads, so a replay renders the call's sample.
+
+    Phases, in the JAX body's order: (I) `init_state` into `packed` (the
+    [n, 39] state); per depth (S) one full step, the any-walker test in
+    `probe` (the `lax.cond` at :949, read by the host), (V) the k_volume
+    substeps when a lane walks, (C) the compaction every sort_every-th
+    depth (host-known, :951); then (F) the last NEE's any-hit (its answer
+    kept in `occ`), the isfinite mask and the scatter into `out`.
+
+    The backward (`backward`, through `_LanesGrad`) is the VJP of
+    `lax.scan(jax.checkpoint(body))`: (F-grad) the gradient of `out` to
+    the last state, then per depth, last first, a (G) phase that
+    recomputes the depth with grad from its saved entry state and takes
+    the forward's substep branch (one graph per branch pair), giving the
+    entry state's gradient and adding the fat tables' into `grads`."""
+
+    def __init__(self, scene, width, height, n, max_steps, sort_every,
+                 k_volume, tri_backend, runner):
+        self.dev = dev = scene["mat_fat"].device
+        self.width, self.height = width, height
+        self.max_steps, self.sort_every = max_steps, sort_every
+        self.k_volume, self.tri_backend = k_volume, tri_backend
+        self.runner = runner
+        self.tables = [k for k in FAT_KEYS if k in scene]
+        self.scene = _own(scene)
+        self._loaded = {path: (t, t._version) for path, t in _tensors(scene)}
+        i64 = torch.int64
+        self.keys = torch.zeros((2,), dtype=i64, device=dev)  # sample, seed
+        self.pixels = torch.arange(n, dtype=torch.int32, device=dev)
+        self.lane = self.pixels.clone()
+        self.packed = torch.zeros((n, _PACK_COLS), device=dev)
+        self.probe = torch.zeros((), dtype=i64, device=dev)
+        self.occ = torch.zeros((n,), dtype=torch.bool, device=dev)
+        self.out = torch.zeros((n, 3), device=dev)
+        self.grads = None  # the backward's buffers, made by its first call
+
+    @torch.no_grad()
+    def load(self, scene):
+        """Copy the caller's tensors that changed since the last load
+        (another tensor, or one written in place) into the program's."""
+        for path, src in _tensors(scene):
+            last = self._loaded.get(path)
+            if last is None or last[0] is not src or last[1] != src._version:
+                _at(self.scene, path).copy_(src)
+                self._loaded[path] = (src, src._version)
+
+    def _compacts(self, depth):
+        return bool(self.sort_every) and (depth + 1) % self.sort_every == 0
+
+    @torch.no_grad()
+    def forward(self, scene, sample_id, seed, lane, saved=None):
+        """One sample into `out`; with `saved` ([max_steps + 1, n, 39]),
+        each depth's entry state and the last state kept there. Returns
+        each depth's substep branch (whether a lane walked)."""
+        with _on(self.dev):
+            self.load(scene)
+            put(self.keys, [int(sample_id) & 0xFFFFFFFF,
+                            int(seed) & 0xFFFFFFFF])
+            self.lane.copy_(self.pixels if lane is None else lane)
+            run = self.runner.run
+            run("I", self.init)
+            walked = []
+            for depth in range(self.max_steps):
+                if saved is not None:
+                    saved[depth].copy_(self.packed)
+                run("S", self.step)
+                walked.append(bool(self.k_volume)
+                              and bool(self.runner.read(self.probe)))
+                if walked[-1]:
+                    run("V", self.substeps)
+                if self._compacts(depth):
+                    run("C", self.compact)
+            if saved is not None:
+                saved[self.max_steps].copy_(self.packed)
+            run("F", self.finish)
+        return walked
+
+    def backward(self, scene, saved, occ, walked, grad_out):
+        """The gradient of `forward`'s `out` (cotangent `grad_out`) to
+        the fat tables -> {key: gradient}, from the forward's `saved`
+        states, its any-hit answer `occ` and its branches `walked`."""
+        with _on(self.dev):
+            if self.grads is None:
+                self.x = torch.zeros_like(self.packed)  # a depth's entry
+                self.g = torch.zeros_like(self.packed)  # its cotangent
+                self.g_out = torch.zeros_like(self.out)
+                self.grads = {k: torch.zeros_like(self.scene[k])
+                              for k in self.tables}
+            self.load(scene)
+            self.g_out.copy_(grad_out)
+            self.occ.copy_(occ)
+            self.x.copy_(saved[self.max_steps])
+            for g in self.grads.values():
+                g.zero_()
+            run = self.runner.run
+            run("F-grad", self.finish_grad)
+            for depth in reversed(range(self.max_steps)):
+                self.x.copy_(saved[depth])
+                vol, comp = walked[depth], self._compacts(depth)
+                run("G" + "-V" * vol + "-C" * comp,
+                    functools.partial(self.depth_grad, vol, comp))
+            return {k: g.clone() for k, g in self.grads.items()}
+
+    # --- phases ----------------------------------------------------------
+
+    def init(self):
+        """(I) fresh camera paths of the pixel ids in `lane`."""
+        self.packed.copy_(pack_state(init_state(
+            self.scene, self.width, self.height, self.keys[0], self.keys[1],
+            self.lane)))
+
+    def step(self):
+        """(S) one full step; with substeps, whether a lane walks in the
+        probe."""
+        st = wavefront_step(self.scene, unpack_state(self.packed),
+                            tri_backend=self.tri_backend)
+        self.packed.copy_(pack_state(st))
+        if self.k_volume:
+            self.probe.copy_((st.alive & (st.mode == MODE_VOLUME)).any())
+
+    def substeps(self):
+        """(V) the k_volume volume-only substeps."""
+        self.packed.copy_(pack_state(self._substeps(
+            self.scene, unpack_state(self.packed))))
+
+    def compact(self):
+        """(C) the compaction."""
+        self.packed.copy_(compact_packed(self.packed, self.scene))
+
+    def finish(self):
+        """(F) the last deferred NEE's any-hit into `occ`, the radiance in
+        lane order into `out`."""
+        st = unpack_state(self.packed)
+        self.occ.copy_(occluded_scene(
+            self.scene, st.org, st.nee_dir,
+            torch.full(st.min_t.shape, EPS, device=self.dev),
+            torch.where(st.nee_maxt >= 0.0, st.nee_maxt, -1.0),
+            backend=self.tri_backend))
+        self.out.copy_(_finish(st, self.occ, self.sort_every))
+
+    def finish_grad(self):
+        """(F-grad) the cotangent `g` of the last state, from `g_out`."""
+        with torch.enable_grad():
+            x = self.x.detach().requires_grad_()
+            g, = torch.autograd.grad(
+                _finish(unpack_state(x), self.occ, self.sort_every), [x],
+                [self.g_out])
+        self.g.copy_(g)
+
+    def depth_grad(self, walked, compacts):
+        """(G) one depth's backward: its step (and substeps, compaction)
+        recomputed with grad from the entry state `x`; the cotangent `g`
+        of its exit state becomes the entry state's, and the fat tables'
+        gradients add into `grads`. Each running sum enters the backward
+        first (through a view), so the depth's terms add onto it in the
+        order of one eager tape's backward."""
+        with torch.enable_grad():
+            x = self.x.detach().requires_grad_()
+            tables = {k: self.scene[k].detach().requires_grad_()
+                      for k in self.tables}
+            scene = {**self.scene, **tables}
+            st = wavefront_step(scene, unpack_state(x),
+                                tri_backend=self.tri_backend)
+            if walked:
+                st = self._substeps(scene, st)
+            p = pack_state(st)
+            if compacts:
+                p = compact_packed(p, scene)
+            leaves = list(tables.values())
+            got = torch.autograd.grad(
+                [p] + [t.view_as(t) for t in leaves], [x] + leaves,
+                [self.g] + [self.grads[k] for k in tables])
+        self.g.copy_(got[0])
+        for k, gk in zip(tables, got[1:]):
+            self.grads[k].copy_(gk)
+
+    def _substeps(self, scene, st):
+        for i in range(self.k_volume):
+            st = wavefront_step(scene, st, freeze_surface=True,
+                                resolve_pending=(i == 0),
+                                tri_backend=self.tri_backend)
+        return st
+
+
+class _LanesGrad(torch.autograd.Function):
+    """`render_lanes(remat=True)` with grad: the program's forward, which
+    keeps each depth's entry state, and its per-depth backward, whose fat
+    tables' gradients autograd carries on to the leaves through
+    `build_fat_tables`."""
+
+    @staticmethod
+    def forward(ctx, prog, scene, sample_id, seed, lane, *tables):
+        saved = torch.empty((prog.max_steps + 1,) + tuple(prog.packed.shape),
+                            device=prog.dev)
+        ctx.walked = prog.forward(scene, sample_id, seed, lane, saved)
+        ctx.prog, ctx.scene, ctx.saved = prog, scene, saved
+        ctx.occ = prog.occ.clone()
+        return prog.out.clone()
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = ctx.prog.backward(ctx.scene, ctx.saved, ctx.occ, ctx.walked,
+                                  grad_out)
+        ctx.saved = None
+        return (None,) * 5 + tuple(
+            grads[k] if need else None
+            for k, need in zip(ctx.prog.tables, ctx.needs_input_grad[5:]))
+
+
+def _on(dev):
+    """The device context a program's CUDA calls run in."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else \
+        contextlib.nullcontext()
 
 
 def render_lanes_wavefront(scene, width: int, height: int, spp: int,
@@ -1064,27 +1368,33 @@ def auto_k_volume(scene_np, max_steps: int = 32, cap: int = 12,
 
 def render_sample(scene, width: int, height: int, sample_id, seed=0,
                   max_steps: int = 32, k_volume: int = 0,
-                  tri_backend: str | None = None):
+                  tri_backend: str | None = None, programs=None):
     """One sample per pixel -> radiance [H, W, 3] (linear); tri_backend
-    forces the triangle backend."""
+    forces the triangle backend; `programs` keeps the compiled program
+    (see `render_lanes`)."""
     contribution = render_lanes(scene, width, height, sample_id, seed,
                                 max_steps, k_volume=k_volume,
-                                tri_backend=tri_backend)
+                                tri_backend=tri_backend, programs=programs)
     return contribution.reshape(height, width, 3)
 
 
 @torch.no_grad()
 def render_scan(scene, width: int, height: int, spp: int, seed=0,
                 max_steps: int = 32, k_volume: int = 0,
-                tri_backend: str | None = None):
+                tri_backend: str | None = None, programs=None):
     """spp independent `render_sample` passes summed in order 0..spp-1,
     then divided by spp (the reference's pass loop,
     render-layer.h:11-26); `render` is the same image from the
-    persistent lanes. tri_backend forces the triangle backend."""
+    persistent lanes. tri_backend forces the triangle backend. The
+    samples run through one compiled program (kept in `programs` when
+    given) and sum into one device buffer, as the JAX package's
+    `lax.scan` carries its accumulator."""
     if "mat_fat" not in scene:
         scene = build_fat_tables(scene)
-    acc = torch.zeros((height, width, 3), device=scene["mat_fat"].device)
+    prog = _lanes_program(programs or Programs(), scene, width, height,
+                          None, max_steps, 2, k_volume, tri_backend)
+    acc = torch.zeros_like(prog.out)
     for sample_id in range(spp):
-        acc = acc + render_sample(scene, width, height, sample_id, seed,
-                                  max_steps, k_volume, tri_backend)
-    return _mean(acc, spp)
+        prog.forward(scene, sample_id, seed, None)
+        acc += prog.out
+    return _mean(acc.reshape(height, width, 3), spp)

@@ -5,10 +5,15 @@ The reference GUI runs a render thread that calls Render() until
 max_pass, applies EditQueue material edits between passes, and resets
 the accumulation on Rerender (pc/pbrlab-gui.cc:207-238,
 pc-common.h:14-81, glfw-window.cc:621-625). Here a pass is one
-`render_sample` on the scene's device; an edit writes a new material
-column between passes (the edited column is cloned, so a scene shared
-with another renderer is not changed) and drops the packed material
-table, which `render_lanes` repacks. Cancel stops issuing passes, and a
+`render_sample` on the scene's device, through one compiled program the
+renderer keeps for its life (CUDA graphs on the card, captured by the
+first passes and replayed by every later one; a new size, max_steps or
+k_volume makes another). An edit writes a new material column between
+passes (the edited column is cloned, so a scene shared with another
+renderer is not changed) and rebuilds the fat tables; the next pass
+copies both into the program's buffers in place, so the graphs replay
+on with the new parameters, as the JAX package's jit takes them as
+inputs with no re-jit. Cancel stops issuing passes, and a
 checkpoint keeps (accumulator, pass counter, seed, size, budget), which
 the reference lacks. Edits address materials by name through the
 SceneBuilder's name table, as the GUI's per-parameter editor does
@@ -23,7 +28,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from .integrator import render_sample
+from ..scene.scene import build_fat_tables
+from .graphs import Programs
+from .integrator import FAT_KEYS, render_sample
 
 
 @dataclasses.dataclass
@@ -49,12 +56,14 @@ class ReplaceEdit:
 
 
 class ProgressiveRenderer:
-    """Accumulates passes; applies queued edits between passes."""
+    """Accumulates passes; applies queued edits between passes. The
+    passes' compiled program is kept in `programs` (`graphs.Programs`)."""
 
     def __init__(self, scene_dev: Dict, width: int, height: int,
                  material_names: Optional[List[str]] = None, seed: int = 0,
                  max_steps: int = 32, k_volume: int = 0):
-        self.scene = scene_dev
+        self.scene = (scene_dev if "mat_fat" in scene_dev
+                      else build_fat_tables(scene_dev))
         self.width = width
         self.height = height
         self.seed = seed
@@ -67,6 +76,7 @@ class ProgressiveRenderer:
         self.num_passes = 0
         self._edit_queue: List = []
         self.pass_times: List[float] = []
+        self.programs = Programs()  # the passes' compiled program
 
     # -- edits (EditQueue semantics: applied between passes) -------------
     def queue_edit(self, material: str, param: str, value) -> None:
@@ -107,10 +117,9 @@ class ProgressiveRenderer:
                 continue
             put(e.param, idx, e.value)
         self._edit_queue.clear()
-        scene = dict(self.scene)
+        scene = {k: v for k, v in self.scene.items() if k not in FAT_KEYS}
         scene["materials"] = mats
-        scene.pop("mat_fat", None)  # repacked by render_lanes
-        self.scene = scene
+        self.scene = build_fat_tables(scene)
         return True
 
     def rerender(self) -> None:
@@ -129,7 +138,8 @@ class ProgressiveRenderer:
         img = render_sample(self.scene, self.width, self.height,
                             self.num_passes, seed=self.seed,
                             max_steps=self.max_steps,
-                            k_volume=self.k_volume).cpu().numpy()
+                            k_volume=self.k_volume,
+                            programs=self.programs).cpu().numpy()
         self.pass_times.append(time.time() - t0)
         self.accum += img
         self.num_passes += 1

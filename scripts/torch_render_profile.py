@@ -11,7 +11,11 @@ dense_v5s/v5l; hair: subdiv=3 with the demo tuft, dense_v4 and
 dense_curve; instanced: chip_smoke.instanced_builder() through
 build_instanced, dense_v5i; dense and dense3: the cornellbox, whose
 legacy tables are the file path's, with the render's tri_backend forced
-to "dense" (dense_v2) or "dense3" (dense_v3)); each render runs at
+to "dense" (dense_v2) or "dense3" (dense_v3)), or the scan path (scan:
+`render_scan` of the cornellbox, a compiled program of max_steps full
+steps a sample, kept across the reps so that they replay its graphs;
+its counts are per step, and the first render's wall, captures and
+nodes print apart); each render runs at
 max_steps=12, k_volume=3, seed 7. --root is the checkout whose `pbrlab_tpu_torch` and
 `chip_smoke.py` are imported (default: the one holding this script), so
 two commits can be compared on one card in one call by running them in
@@ -35,6 +39,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
 import statistics
 import subprocess
@@ -46,7 +51,8 @@ import torch
 SCENES = {"cornellbox": dict(subdiv=3), "mid": dict(subdiv=4),
           "large": dict(subdiv=5, irregular=True),
           "hair": dict(subdiv=3, with_hair=True), "instanced": None,
-          "dense": dict(subdiv=3), "dense3": dict(subdiv=3)}
+          "dense": dict(subdiv=3), "dense3": dict(subdiv=3),
+          "scan": dict(subdiv=3)}
 BACKEND = {"dense": "dense", "dense3": "dense3"}  # forced tri_backend
 CURVE = ("curve_kernel",)  # csrc/dense_curve.cu
 V5I = ("v5i_kernel",)  # csrc/dense_v5i.cu
@@ -63,7 +69,7 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cudaMemsetAsync")
 # the kernels each path reports
 ONE = {"cornellbox": V4, "instanced": V5I, "large": V5L, "mid": V5,
-       "hair": CURVE, "dense": LEGACY, "dense3": LEGACY}
+       "hair": CURVE, "dense": LEGACY, "dense3": LEGACY, "scan": V4 + V5}
 
 
 def profile(path, run, size, spp, wall, iters, card):
@@ -87,15 +93,17 @@ def profile(path, run, size, spp, wall, iters, card):
     one = [e for e in own if any(k in e.key for k in ONE[path])]
     one_s = sum(e.self_device_time_total for e in one) / 1e6
     one_n = sum(e.count for e in one)
-    print(f"{path} {size}x{size}x{spp}: {iters} sub-iterations; wall "
+    unit = "step" if path == "scan" else "sub-iteration"
+    print(f"{path} {size}x{size}x{spp}: {iters} {unit}s; wall "
           f"{wall:.3f} s unprofiled, {prof_wall:.3f} s profiled; {count} "
-          f"device kernels ({count / iters:.0f} per sub-iteration), device "
+          f"device kernels ({count / iters:.0f} per {unit}), device "
           f"busy {busy:.3f} s, idle share {1 - busy / wall:.3f}; trace "
           f"kernels {own_s:.3f} s ({own_s / busy * 100:.1f}% of busy), of "
           f"which {'/'.join(ONE[path])} {one_s:.3f} s ({one_s / busy * 100:.1f}% of busy, "
           f"{one_n} launches) ({card})")
     print(f"  host launches {sum(host.values())} "
-          f"({sum(host.values()) / iters:.0f} per sub-iteration): {host}")
+          f"({sum(host.values()) / iters:.0f} per {unit}), of them graph "
+          f"launches {host.get('cudaGraphLaunch', 0)}: {host}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e6:9.4f} s {e.count:8d}x "
               f"{e.key[:90]}")
@@ -121,7 +129,8 @@ def main():
     sys.path.insert(0, root)
     import pbrlab_tpu_torch
     from chip_smoke import instanced_builder
-    from pbrlab_tpu_torch.render.integrator import render_lanes_wavefront
+    from pbrlab_tpu_torch.render.integrator import (render_lanes_wavefront,
+                                                    render_scan)
     from pbrlab_tpu_torch.scene.demo import build_demo_scene
     from pbrlab_tpu_torch.scene.instanced import build_instanced
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
@@ -138,16 +147,39 @@ def main():
             scene_np = build_demo_scene(**SCENES[path])[0]
         scene = scene_from_numpy(scene_np, torch.device("cuda:0"))
 
+        kept = {}
+        if path == "scan" and "programs" in inspect.signature(
+                render_scan).parameters:  # older trees run it op by op
+            from pbrlab_tpu_torch.render.graphs import Programs
+            kept["programs"] = Programs()  # kept across the reps
+
         def run(size, spp):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, iters = render_lanes_wavefront(
-                scene, size, size, spp, seed=7, max_steps=12, k_volume=3,
-                return_iters=True, tri_backend=BACKEND.get(path))
+            if path == "scan":
+                render_scan(scene, size, size, spp, seed=7, max_steps=12,
+                            k_volume=3, **kept)
+                iters = spp * 12
+            else:
+                _, iters = render_lanes_wavefront(
+                    scene, size, size, spp, seed=7, max_steps=12,
+                    k_volume=3, return_iters=True,
+                    tri_backend=BACKEND.get(path))
             torch.cuda.synchronize()
             return time.perf_counter() - t0, iters
 
-        run(32, 1)
+        if not kept:
+            run(32, 1)
+        else:  # the first render at the size warms and captures
+            first, _ = run(args.size, args.spp)
+            prog, = kept["programs"].programs.values()
+            stats = prog.runner.stats
+            capture = sum(st["capture_s"] + st["instantiate_s"]
+                          for st in stats.values())
+            print(f"{root} scan {args.size}x{args.size}x{args.spp} first "
+                  f"render (warm-ups and captures): {first:.3f} s, captures "
+                  f"{capture:.3f} s, nodes {prog.runner.nodes()} ({card})",
+                  flush=True)
         walls = []
         for rep in range(args.reps):
             wall, iters = run(args.size, args.spp)
