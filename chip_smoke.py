@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA library (every csrc/*.cu) and drives its six
+Builds the port's CUDA library (every csrc/*.cu) and drives its seven
 render paths on one card (and, in phase 8, the cornellbox and the hair
 scene again through the "bvh" backend):
 
@@ -13,6 +13,9 @@ scene again through the "bvh" backend):
 * large: `build_demo_scene(subdiv=5, irregular=True)` (40972 triangles,
   bench.py's large line), the dense_v5s scheduler over dense_v5l,
   512x512, 16 spp;
+* xl: `build_demo_scene(subdiv=6, irregular=True)` (163852 triangles in
+  7354 leaves, 64 v5s roots; bench.py's XL line), dense_v5s over
+  dense_v5l, 512x512, 8 spp, as bench.py;
 * hair: `build_demo_scene(subdiv=3, with_hair=True)`, the cornellbox plus
   the demo tuft (96 strands, 5376 sub-segments in 42 clusters): dense_v4
   for the triangles, dense_curve (closest and any-hit) for the hair,
@@ -22,8 +25,10 @@ scene again through the "bvh" backend):
   glossy; 819k world triangles from 6.4k local faces) on a textured
   floor, dense_v5i (closest and any-hit), 256x256, 8 spp;
 * file: the cornellbox of `build_demo_scene(subdiv=3)` written as OBJ +
-  MTL + scene JSON (`write_cornellbox`) into a temporary directory and
-  loaded with `io.scene_json.load_scene_json`, rendered twice through the
+  MTL + scene JSON (`write_cornellbox`; the floor textured by a PNG that
+  `io.image.encode_png` writes and `io.image.decode_png` reads back) into
+  a temporary directory and loaded with `io.scene_json.load_scene_json`
+  (the texture's atlas checked), rendered twice through the
   legacy backends the render's `tri_backend` forces: dense_v3 ("dense3")
   at 512x512, 8 spp, and dense_v2 ("dense") at 256x256, 8 spp;
 
@@ -37,7 +42,8 @@ the need, and each dual's closest answer is bit-equal to its single
 kernel's; dense_v4 and dense_v3 also timed as whole wrapper calls);
 phase 4 checks small renders on the card against the same renders on the
 CPU (the instanced one on a 16-instance cut of its scene,
-PARITY_INSTANCED; the file scene through both legacy backends); phase 5
+PARITY_INSTANCED; the textured file scene through both legacy backends);
+phase 5
 renders each path (`render_lanes_wavefront`: its loop as CUDA graphs,
 captured and replayed in the call) with every launch counter set to 0
 just before and read just after; phase 6 drives the user's entry points on the
@@ -54,7 +60,10 @@ paths (`training_phase`: the graphed gradient pass at 1024x1024x1, its
 walls, peak memory and launches against the `torch.utils.checkpoint`
 tape's, at most 1.5x its memory, the same image and loss, gradients in
 the band; card vs CPU gradients; the emission FD; `render_sharded`; the
-train step; two gloo ranks); phase
+train step, run twice; the C12 reproducibility passes, bits compared; two
+gloo ranks; then `hair_grad_phase`: the hair scene's graphed gradient
+pass at 64x64x1, the hair material's columns among its leaves, against
+the CPU's); phase
 8 the threaded-BVH backend (`bvh_phase`): the `bvh_trace` and
 `curve_bvh_trace` kernels (`csrc/bvh_walk.cu`, the JAX package's CPU
 walks) against their twins on phase 3's cornellbox and hair rays, card
@@ -68,7 +77,8 @@ launches equal, with both walls, the capture cost, the nodes per graph
 and the peak memory printed; then the scan path's programs
 (`scan_graph_phase`): `render_scan` at GRAPH_SIZE^2 x GRAPH_SPP on every
 phase-5 path, three progressive passes with an HTTP edit before the
-third, and the gradient pass at SCAN_GRAD_SIZE^2 x 1, graphed (under sync
+third, and the gradient passes of the cornellbox and the hair scene at
+SCAN_GRAD_SIZE^2 x 1, graphed (under sync
 debug mode "error") and through the same phases op by op: bit-equal
 images, passes and loss, equal launches, gradients in the band, no
 capture made by the edit.
@@ -80,12 +90,10 @@ from __future__ import annotations
 
 import json
 import os
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -98,11 +106,15 @@ PATHS = {  # name: (build_demo_scene kwargs, width = height, spp)
     "large": (dict(subdiv=5, irregular=True), 512, 16),
     "hair": (dict(subdiv=3, with_hair=True), 512, 8),
     "instanced": (None, 256, 8),  # instanced_builder() + build_instanced
+    # last: phase 3 draws every path's rays from one generator in this
+    # order, so the earlier paths keep theirs
+    "xl": (dict(subdiv=6, irregular=True), 512, 8),  # bench.py:89-98
 }
 # the file path: the scene write_cornellbox() writes, rendered through each
 # legacy backend: tri_backend -> (width = height, spp)
 FILE_RENDERS = {"dense3": (512, 8), "dense": (256, 8)}
 FILE_FACES = 2572  # build_demo_scene(subdiv=3): 5 walls, light, 2 bodies
+FILE_TEXTURE = 16  # the file path's floor: a 16x16 checker PNG (texels)
 # the instanced render parity's cut of the scene: the CPU's plain walk of
 # the full one takes seconds a trace
 PARITY_INSTANCED = dict(side=4, subdivs=(2, 1))
@@ -125,6 +137,11 @@ BVH_PATHS = ("cornellbox", "hair")  # phase 8: these at tri_backend="bvh"
 BVH_SIZE, BVH_SPP = 256, 8  # phase 8's renders
 GRAPH_SIZE, GRAPH_SPP = 128, 2  # phase 9: graphed and eager renders
 SCAN_GRAD_SIZE = 64  # phase 9: graphed and eager gradient passes
+# phase 7: the hair scene's gradient pass, card vs CPU, and the columns of
+# the hair material it differentiates besides the train step's leaves
+HAIR_GRAD_SIZE = 64
+HAIR_GRAD_KEYS = ("melanin", "hair_roughness", "azimuthal_roughness")
+REPRO_SIZE = 64  # phase 7: the C12 reproducibility passes
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
 N_SINGLE = 24576  # default volume window (3/8 of the lanes): substeps 2-3
 RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
@@ -195,17 +212,29 @@ def instanced_builder(side=16, subdivs=(4, 3)):
     return b
 
 
+def checker_texture(n=FILE_TEXTURE):
+    """[n, n, 3] uint8: a checker of 4x4-texel squares in two greys, the
+    file path's floor texture."""
+    y, x = np.mgrid[0:n, 0:n]
+    on = ((x // 4 + y // 4) % 2).astype(bool)[..., None]
+    return np.where(on, [200, 180, 150], [70, 90, 120]).astype(np.uint8)
+
+
 def write_cornellbox(dirpath, subdiv=3):
     """The cornellbox of `build_demo_scene(subdiv)` as the files a user
     renders: cornellbox.obj (one object per mesh: floor, ceiling, back,
     left, right, light, monkey, lucy; the bodies with their vertex
-    normals; usemtl names each mesh's material), cornellbox.mtl (every
-    demo material with all 17 principled keys), and cornellbox.json: the
-    OBJ, the two bodies' materials again as JSON materials of the same
-    names, the ceiling's area light, and one local scene and instance per
-    mesh, the bodies with their JSON material, the light quad with the
-    light. Every demo material parameter has a key in both formats.
-    Returns the JSON's path."""
+    normals, the floor with texcoords; usemtl names each mesh's
+    material), cornellbox.mtl (every demo material with all 17
+    principled keys, and Floor_Checker: the floor's material with
+    `map_base_color floor.png`), floor.png (`checker_texture()` through
+    `io.image.encode_png`), and cornellbox.json: the OBJ, the two bodies'
+    materials again as JSON materials of the same names, the ceiling's
+    area light, and one local scene and instance per mesh, the bodies
+    with their JSON material, the light quad with the light. Every demo
+    material parameter has a key in both formats. Returns the JSON's
+    path."""
+    from pbrlab_tpu_torch.io.image import encode_png
     from pbrlab_tpu_torch.scene.demo import build_demo_scene
     from pbrlab_tpu_torch.scene.materials import PRINCIPLED_COLUMNS
 
@@ -219,15 +248,29 @@ def write_cornellbox(dirpath, subdiv=3):
     for name, row in zip(names, rows):
         mtl.append(f"newmtl {name}")
         mtl += [f"{k} {fmt(row[k])}" for k, _, _ in PRINCIPLED_COLUMNS]
+    floor_mat = None
     obj = ["mtllib cornellbox.mtl"]
     local_scenes, instances, materials, lights = [], [], [], []
-    nv = nn = 0
+    nv = nn = nt = 0
     for inst in b._instances:
         (mesh,) = inst.meshes
         (mat,) = np.unique(mesh.material_ids)
         obj += [f"o {mesh.name}"] + [f"v {fmt(p)}" for p in mesh.vertices]
         if mesh.normals is not None:
             obj += [f"vn {fmt(n)}" for n in mesh.normals]
+        if mesh.name == "floor":  # texcoords over the floor's x and z
+            xz = mesh.vertices[:, [0, 2]]
+            uv = (xz - xz.min(0)) / (xz.max(0) - xz.min(0))
+            obj += [f"vt {fmt(t)}" for t in uv]
+            obj.append("usemtl Floor_Checker")
+            floor_mat = mat
+            obj += ["f " + " ".join(f"{nv + a + 1}/{nt + a + 1}"
+                                    for a in face) for face in mesh.faces]
+            nv += len(mesh.vertices)
+            nt += len(uv)
+            local_scenes.append({"name": mesh.name, "meshes": [mesh.name]})
+            instances.append({"local_scene": mesh.name})
+            continue
         obj.append(f"usemtl {names[mat]}")
         for k, face in enumerate(mesh.faces):
             if mesh.normals is None:
@@ -252,6 +295,11 @@ def write_cornellbox(dirpath, subdiv=3):
                            "emission": b._light_params[lid].tolist()})
             instance["lights"] = [f"{mesh.name}_area"]
         instances.append(instance)
+    mtl.append("newmtl Floor_Checker")
+    mtl += [f"{k} {fmt(rows[floor_mat][k])}" for k, _, _ in PRINCIPLED_COLUMNS]
+    mtl.append("map_base_color floor.png")
+    with open(os.path.join(dirpath, "floor.png"), "wb") as f:
+        f.write(encode_png(checker_texture()))
     for name, text in (("cornellbox.obj", obj), ("cornellbox.mtl", mtl)):
         with open(os.path.join(dirpath, name), "w") as f:
             f.write("\n".join(text) + "\n")
@@ -267,9 +315,14 @@ def write_cornellbox(dirpath, subdiv=3):
 
 def load_file_scene(subdiv=3):
     """`write_cornellbox` into a temporary directory under build/, then
-    the port's `load_scene_json` (which commits). Checks the faces and
-    the one emissive light group; returns the committed numpy scene."""
+    the port's `load_scene_json` (which commits). Checks the faces, the
+    one emissive light group and the floor's PNG texture: the atlas holds
+    the checker, decoded and taken to linear, and the quad atlas is built
+    from it (a texture that failed to load is only a warning in the
+    loader: here it fails); returns the committed numpy scene."""
+    from pbrlab_tpu_torch.io.image import srgb_to_linear
     from pbrlab_tpu_torch.io.scene_json import load_scene_json
+    from pbrlab_tpu_torch.scene.textures import build_quad_atlas
 
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build")
@@ -282,6 +335,19 @@ def load_file_scene(subdiv=3):
             or render_cfg["width"] != 512:
         raise AssertionError(f"file scene: {faces} faces, light groups "
                              f"{groups}, render section {render_cfg}")
+    atlas, sizes = scene["texture_atlas"], scene["texture_sizes"]
+    want = srgb_to_linear(checker_texture().astype(np.float32) / 255.0)
+    if atlas.shape != (1, FILE_TEXTURE, FILE_TEXTURE, 3) \
+            or not np.array_equal(atlas[0], want) \
+            or sizes.tolist() != [[FILE_TEXTURE, FILE_TEXTURE]] \
+            or not (scene["materials"]["base_color_tex_id"] == 0).any():
+        raise AssertionError(f"file scene: the floor's PNG texture did not "
+                             f"load (atlas {atlas.shape}, sizes "
+                             f"{sizes.tolist()})")
+    quad = build_quad_atlas(torch.from_numpy(atlas), torch.from_numpy(sizes))
+    print(f"file scene texture: floor.png {FILE_TEXTURE}x{FILE_TEXTURE} "
+          f"decoded by io.image.decode_png into texture_atlas "
+          f"{tuple(atlas.shape)}, texture_quad {tuple(quad.shape)}")
     return scene
 
 
@@ -663,11 +729,13 @@ def v5_case(dense_v5, name, tris, scene, rays, card, roots=None,
                 max_abs_err=err)
 
 
-def v5_phase(dense_v5, mid, large, mid_rays, large_rays, card):
+def v5_phase(dense_v5, mid, large, xl, mid_rays, large_rays, xl_rays,
+             card):
     """dense_v5 (dual at N_DUAL, closest at N_SINGLE and N_DUAL, any-hit on
     the shadow rays) on the mid scene, the dual's closest answer equal to
     the single kernel's; dense_v5l with and without group roots and
-    dense_v5s on the large scene."""
+    dense_v5s on the large scene; on the XL scene, dense_v5l from the
+    cut's group roots and dense_v5s, the main path's call."""
     dual, single = mid_rays
     tris = mid["dense_tris_v4"]
     rec = {"v5_dual": v5_case(dense_v5, "dense_v5 dual", tris, mid, dual,
@@ -705,24 +773,40 @@ def v5_phase(dense_v5, mid, large, mid_rays, large_rays, card):
     v5_case(dense_v5, "dense_v5l group roots", tris, large, ldual[:4], card,
             roots=roots, leaf_major=True, plain_reps=1)
 
-    s_args = (tris, large["v5_node_aabb"], large["v5_node_meta"], sub,
-              large["v5s_aabb"], *ldual[:4])
+    v5s_case(dense_v5, "dense_v5s", large, ldual, card)
+    xdual = xl_rays[0]
+    sub = xl["v5s_roots"]
+    roots = sub[torch.arange(N_DUAL // 1024, device=sub.device)
+                % sub.shape[0]].contiguous()
+    rec["v5l_xl"] = v5_case(dense_v5, "dense_v5l group roots, xl",
+                            xl["dense_tris_v5l"], xl, xdual[:4], card,
+                            roots=roots, leaf_major=True, plain_reps=1)
+    v5s_case(dense_v5, "dense_v5s xl", xl, xdual, card)
+    return rec
+
+
+def v5s_case(dense_v5, name, scene, dual, card):
+    """dense_trace_v5s (closest and any-hit) on a large scene's rays
+    against the same scheduler over the plain v5l walk; CUDA-event times
+    of a call, of the v5l launches inside it and over the plain walk."""
+    s_args = (scene["dense_tris_v5l"], scene["v5_node_aabb"],
+              scene["v5_node_meta"], scene["v5s_roots"], scene["v5s_aabb"],
+              *dual[:4])
     got = dense_v5.dense_trace_v5s(*s_args)
     ref = v5s_over_plain_v5l(dense_v5, s_args)
     torch.cuda.synchronize()
-    err = check_hits("dense_v5s", got, ref)
+    err = check_hits(name, got, ref)
     anyh = dense_v5.dense_trace_v5s(*s_args, any_hit=True)
     if not torch.equal(anyh["prim"] >= 0, ref["prim"] >= 0):
-        raise AssertionError("dense_v5s any-hit: hit mask differs")
+        raise AssertionError(f"{name} any-hit: hit mask differs")
     total = cuda_ms(lambda: dense_v5.dense_trace_v5s(*s_args), reps=10)
     plain = cuda_ms(lambda: v5s_over_plain_v5l(dense_v5, s_args), reps=1,
                     warmup=1)
     kernel_ms = v5s_kernel_share(dense_v5, s_args)
-    print(f"dense_v5s N={N_DUAL}: max|dt|={err:.3g}, any-hit mask equal; "
+    print(f"{name} N={N_DUAL}: max|dt|={err:.3g}, any-hit mask equal; "
           f"{total:.4f} ms a call (v5l inside: {kernel_ms:.4f} ms in "
           f"its launches, {total - kernel_ms:.4f} ms scheduling ops), "
           f"{plain:.4f} ms over the plain v5l ({card})")
-    return rec
 
 
 def v5s_over_plain_v5l(dense_v5, s_args):
@@ -1254,8 +1338,9 @@ def scan_graph_phase(scenes, file_scene, names, card):
     """Phase 9, the scan path's compiled programs against their phases op
     by op: `render_scan` at GRAPH_SIZE^2 x GRAPH_SPP on every phase-5 path,
     three progressive passes of the cornellbox at GRAPH_SIZE^2 with an
-    HTTP edit before the third, and the gradient pass of the cornellbox at
-    SCAN_GRAD_SIZE^2 x 1, each once through a `Programs` of `GraphRunner`s
+    HTTP edit before the third, and the gradient passes of the cornellbox
+    and of the hair scene (its HAIR_GRAD_KEYS too) at SCAN_GRAD_SIZE^2 x
+    1, each once through a `Programs` of `GraphRunner`s
     whose every phase runs under sync debug mode "error" and once through
     `EagerRunner`s. The images, the passes and the loss must be bit-equal
     and the launches equal; the gradients within GRAD_BAND of the largest
@@ -1346,26 +1431,30 @@ def scan_graph_phase(scenes, file_scene, names, card):
         raise AssertionError("the graphed progressive passes differ from "
                              "the eager ones, or the edit recaptured")
 
-    rec = {}
-    for kind, runner in runners.items():
-        programs = graphs.Programs(runner=runner)
-        rec[kind] = grad_pass(scene, SCAN_GRAD_SIZE, counters=graphs.COUNTERS,
-                              programs=programs, **SETTINGS)
-        rec[kind]["programs"] = programs
-    g, e = rec["graphs"], rec["eager"]
-    same = torch.equal(g["img"], e["img"]) and torch.equal(g["loss"],
-                                                           e["loss"])
-    print(f"graphs grad pass {SCAN_GRAD_SIZE}x{SCAN_GRAD_SIZE}x1: image and "
-          f"loss bit-equal {same}, launches {g['counts']}; forward "
-          f"{g['fwd']:.3f} / {e['fwd']:.3f} s, backward {g['bwd']:.3f} / "
-          f"{e['bwd']:.3f} s, peak allocated {g['peak'] / 2**20:.1f} / "
-          f"{e['peak'] / 2**20:.1f} MiB, graphed / eager ({card})")
-    print(f"  {program_line(g['programs'])}")
-    if not same or g["counts"] != e["counts"]:
-        raise AssertionError("the graphed gradient pass differs from its "
-                             "phases op by op")
-    grads_agree(f"graphs grad pass {SCAN_GRAD_SIZE}x{SCAN_GRAD_SIZE}x1 "
-                "graphed vs eager", g["grads"], e["grads"], GRAD_BAND, card)
+    for name, extra in (("cornellbox", ()), ("hair", HAIR_GRAD_KEYS)):
+        rec = {}
+        for kind, runner in runners.items():
+            programs = graphs.Programs(runner=runner)
+            rec[kind] = grad_pass(scenes[name], SCAN_GRAD_SIZE,
+                                  counters=graphs.COUNTERS, programs=programs,
+                                  extra=extra, **SETTINGS)
+            rec[kind]["programs"] = programs
+        g, e = rec["graphs"], rec["eager"]
+        same = torch.equal(g["img"], e["img"]) and torch.equal(g["loss"],
+                                                               e["loss"])
+        print(f"graphs grad pass {name} {SCAN_GRAD_SIZE}x{SCAN_GRAD_SIZE}x1:"
+              f" image and loss bit-equal {same}, launches {g['counts']}; "
+              f"forward {g['fwd']:.3f} / {e['fwd']:.3f} s, backward "
+              f"{g['bwd']:.3f} / {e['bwd']:.3f} s, peak allocated "
+              f"{g['peak'] / 2**20:.1f} / {e['peak'] / 2**20:.1f} MiB, "
+              f"graphed / eager ({card})")
+        print(f"  {program_line(g['programs'])}")
+        if not same or g["counts"] != e["counts"]:
+            raise AssertionError(f"the graphed gradient pass of {name} "
+                                 "differs from its phases op by op")
+        grads_agree(f"graphs grad pass {name} {SCAN_GRAD_SIZE}x"
+                    f"{SCAN_GRAD_SIZE}x1 graphed vs eager", g["grads"],
+                    e["grads"], GRAD_BAND, card)
 
 
 def render_parity(name, scene_np, scene, fn=None, **kw):
@@ -1391,30 +1480,14 @@ def render_parity(name, scene_np, scene, fn=None, **kw):
 
 
 def png_pixels(data):
-    """The [H, W, 3] pixels of an 8-bit RGB PNG whose rows all carry
-    filter type 0 (what `io.image.encode_png` writes), every chunk's CRC
-    checked; raises on anything else."""
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError("no PNG signature")
-    pos, idat, ihdr = 8, b"", None
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if zlib.crc32(kind + body) != crc:
-            raise AssertionError(f"PNG chunk {kind} fails its CRC")
-        if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    w, h = ihdr[:2]
-    if ihdr[2:] != (8, 2, 0, 0, 0):
-        raise AssertionError(f"PNG is not 8-bit RGB: IHDR {ihdr}")
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise AssertionError("PNG rows carry filters")
-    return rows[:, 1:].reshape(h, w, 3)
+    """The [H, W, 3] pixels of an 8-bit RGB PNG (what `io.image.encode_png`
+    writes), read by `io.image.decode_png` (every chunk's CRC checked);
+    raises on anything else."""
+    from pbrlab_tpu_torch.io.image import decode_png
+
+    if data[12:16] != b"IHDR" or tuple(data[24:26]) != (8, 2):
+        raise AssertionError(f"PNG is not 8-bit RGB: {data[:32]!r}")
+    return decode_png(data)
 
 
 def entry_phase(counters, scene_np, scene, names, card):
@@ -1614,29 +1687,29 @@ def textured_quad_scene():
     return commit(b.build())
 
 
-def with_leaves(scene):
+def with_leaves(scene, extra=()):
     """(scene copy, {key: leaf}): the train step's eight leaves (six
-    material columns, face_emission, texture_atlas) as fresh tensors that
-    require grad. The scene has no fat tables: `render_lanes` builds them
-    from the leaves."""
+    material columns, face_emission, texture_atlas) and the material
+    columns `extra` as fresh tensors that require grad. The scene has no
+    fat tables: `render_lanes` builds them from the leaves."""
     from pbrlab_tpu_torch.parallel.sharding import GRAD_KEYS, SCENE_KEYS
 
     s = dict(scene)
     mats = s["materials"] = dict(scene["materials"])
     leaves = {}
-    for key in GRAD_KEYS + SCENE_KEYS:
+    for key in GRAD_KEYS + SCENE_KEYS + tuple(extra):
         src = mats if key in mats else s
         leaves[key] = src[key] = src[key].detach().clone().requires_grad_()
     return s, leaves
 
 
 def grad_pass(scene, size, max_steps, k_volume, counters=None,
-              programs=None, tape=False):
+              programs=None, tape=False, extra=()):
     """The MSE of `render_lanes(remat=True)` (size^2, one sample, seed 7)
     against the same render at base_color x 0.5, and its backward to the
-    eight leaves: through the compiled program kept in `programs` (None:
-    one for the call), or with `tape` through the `torch.utils.checkpoint`
-    tape it replaced. Returns {"grads": {key: gradient or None}, "fwd",
+    eight leaves and the material columns `extra`: through the compiled
+    program kept in `programs` (None: one for the call), or with `tape`
+    through the `torch.utils.checkpoint` tape it replaced. Returns {"grads": {key: gradient or None}, "fwd",
     "bwd": walls, "img", "loss", "peak": peak allocated bytes from the
     forward on, "fwd_counts", "counts": launch counts forward and after
     the backward (when `counters` is given)}."""
@@ -1651,7 +1724,7 @@ def grad_pass(scene, size, max_steps, k_volume, counters=None,
                         scene["materials"]["base_color"] * 0.5}
     with torch.no_grad():
         target = render_lanes(dim, size, size, 0, SEED, **kw)
-    s, leaves = with_leaves(scene)
+    s, leaves = with_leaves(scene, extra)
 
     def counts():
         return {f"{m}.{k}": v for m, c in (counters or {}).items()
@@ -1697,13 +1770,14 @@ def grads_agree(name, got, want, band, card):
                 raise AssertionError(f"{name} {key}: read on one side only")
             continue
         g, w = got[key].cpu().numpy(), want[key].cpu().numpy()
-        scale = np.abs(w).max()
-        worst[key] = float(np.abs(g - w).max() / max(scale, 1e-30))
+        scale = float(np.abs(w).max())
+        worst[key] = (float(np.abs(g - w).max() / max(scale, 1e-30)), scale)
         if not (np.abs(g - w) <= band * scale + 1e-6).all():
             raise AssertionError(f"{name} {key} gradient off the band "
-                                 f"(max |diff| / max |ref| {worst[key]:.3g})")
-    print(f"{name}: max |diff| / max |ref| per leaf {worst} (band {band}) "
-          f"({card})")
+                                 f"(max |diff| / max |ref| "
+                                 f"{worst[key][0]:.3g})")
+    print(f"{name}: (max |diff| / max |ref|, max |ref|) per leaf {worst} "
+          f"(band {band} of max |ref|, + 1e-6) ({card})")
 
 
 def captures(programs):
@@ -1771,7 +1845,9 @@ def training_phase(counters, scene_np, scene, card):
     gradients on the card against the CPU at 32^2; the emission gradient
     against central differences at 64^2; `render_sharded` on two shards
     of the card against `render`; four train steps on the textured quad
-    scene over two shards; two ranks on the card (gloo) against `render`.
+    scene over two shards, run twice to compare their losses and atlases
+    bit for bit (ROADMAP C12); the C12 gradient passes
+    (`reproducibility`); two ranks on the card (gloo) against `render`.
     Returns the gradient pass's launch counts after the backward."""
     from pbrlab_tpu_torch.parallel import sharding
     from pbrlab_tpu_torch.render.graphs import Programs
@@ -1868,27 +1944,39 @@ def training_phase(counters, scene_np, scene, card):
     images_agree(f"sharded render {SHARD_SIZE}x{SHARD_SIZE}x{SHARD_SPP} on "
                  f"{mesh} in {wall:.3f} s vs render", shard, single, card)
 
-    t0 = time.perf_counter()
     quad = scene_from_numpy(textured_quad_scene(), dev)
     dim = {**quad, "texture_atlas": quad["texture_atlas"] * 0.5}
     target = sharding.render_sharded(dim, TRAIN_SIZE, TRAIN_SIZE, 1, mesh,
                                      max_steps=4)
-    # the loss sums squares over the pixels: the 8x8 test's lr of 0.2
-    # scaled to the pixel count keeps its step
-    step = sharding.train_step_builder(
-        TRAIN_SIZE, TRAIN_SIZE, 1, mesh, max_steps=4,
-        lr=0.2 * 64 / TRAIN_SIZE ** 2)
-    s, losses = quad, []
-    for _ in range(TRAIN_STEPS):
-        loss, s = step(s, target)
-        losses.append(float(loss))
-    moved = float((s["texture_atlas"] - quad["texture_atlas"]).abs().max())
-    print(f"train step: textured quad {TRAIN_SIZE}x{TRAIN_SIZE}x1 towards "
-          f"the atlas x 0.5, {TRAIN_STEPS} steps on {mesh}: losses {losses}, "
-          f"atlas moved {moved:.4g}, {time.perf_counter() - t0:.3f} s; its "
-          f"kept program: {program_line(step.programs)} ({card})")
-    if not (losses[-1] < 0.9 * losses[0] and moved > 1e-4):
-        raise AssertionError("the train step did not lower the loss")
+    runs = []
+    for run in range(2):  # the second run: C12, the same steps again
+        t0 = time.perf_counter()
+        # the loss sums squares over the pixels: the 8x8 test's lr of 0.2
+        # scaled to the pixel count keeps its step
+        step = sharding.train_step_builder(
+            TRAIN_SIZE, TRAIN_SIZE, 1, mesh, max_steps=4,
+            lr=0.2 * 64 / TRAIN_SIZE ** 2)
+        s, losses = quad, []
+        for _ in range(TRAIN_STEPS):
+            loss, s = step(s, target)
+            losses.append(float(loss))
+        runs.append((losses, s["texture_atlas"]))
+        moved = float((s["texture_atlas"] - quad["texture_atlas"]).abs()
+                      .max())
+        print(f"train step, run {run + 1}: textured quad {TRAIN_SIZE}x"
+              f"{TRAIN_SIZE}x1 towards the atlas x 0.5, {TRAIN_STEPS} steps "
+              f"on {mesh}: losses {losses}, atlas moved {moved:.4g}, "
+              f"{time.perf_counter() - t0:.3f} s; its kept program: "
+              f"{program_line(step.programs)} ({card})")
+        if not (losses[-1] < 0.9 * losses[0] and moved > 1e-4):
+            raise AssertionError("the train step did not lower the loss")
+    (l1, a1), (l2, a2) = runs
+    print(f"C12 train step reproducibility: two runs of {TRAIN_STEPS} steps "
+          f"from the same inputs: losses bit-equal {l1 == l2} ({l1} / {l2}),"
+          f" final atlas bit-equal {torch.equal(a1, a2)}, max |diff| "
+          f"{float((a1 - a2).abs().max()):.3g} ({card})")
+
+    reproducibility(scene, card)
 
     t0 = time.perf_counter()
     got = two_ranks(dev.type)
@@ -1898,6 +1986,82 @@ def training_phase(counters, scene_np, scene, card):
                  f"{DIST_SIZE}x{DIST_SPP} in {wall:.3f} s (processes "
                  f"included) vs render", got, want, card)
     return counts
+
+
+def reproducibility(scene, card):
+    """C12: the cornellbox's gradient pass at REPRO_SIZE^2 x 1 twice, each
+    through a program of its own, from the same inputs. Prints whether
+    the image, the loss and each leaf's gradient are bit-equal, and if a
+    gradient is not, its largest difference over its largest entry (the
+    fat tables' gradients are summed by index_add_, whose atomics on the
+    card add in no fixed order). A measurement: only a non-finite value
+    fails."""
+    from pbrlab_tpu_torch.render.graphs import Programs
+
+    a, b = (grad_pass(scene, REPRO_SIZE, programs=Programs(), **SETTINGS)
+            for _ in range(2))
+    rel, equal = {}, {}
+    for key, g in a["grads"].items():
+        if g is None:
+            continue
+        h = b["grads"][key]
+        if not (torch.isfinite(g).all() and torch.isfinite(h).all()):
+            raise AssertionError(f"C12: the {key} gradient is not finite")
+        equal[key] = torch.equal(g, h)
+        rel[key] = float((g - h).abs().max() / g.abs().max().clamp(
+            min=1e-30))
+    print(f"C12 gradient reproducibility: the cornellbox pass {REPRO_SIZE}x"
+          f"{REPRO_SIZE}x1 twice: image bit-equal "
+          f"{torch.equal(a['img'], b['img'])}, loss bit-equal "
+          f"{torch.equal(a['loss'], b['loss'])}; leaves bit-equal "
+          f"{sum(equal.values())} of {len(equal)} {equal}; max |diff| / "
+          f"max |grad| per leaf {rel} ({card})")
+
+
+def hair_grad_phase(counters, scene_np, scene, card):
+    """Phase 7, hair: the gradient pass of the hair scene at HAIR_GRAD_SIZE^2
+    x 1 (`render_lanes(remat=True)`, max_steps 12, k_volume 3) to the eight
+    leaves and HAIR_GRAD_KEYS, twice through one kept program (graphed:
+    the first pass captures, the second replays), with its walls, peak
+    memory and launches (dense_curve's included); the replayed pass's
+    gradients against the CPU's within GRAD_BAND of its largest entry."""
+    from pbrlab_tpu_torch.render.graphs import Programs
+    from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+
+    programs = Programs()
+    passes = [grad_pass(scene, HAIR_GRAD_SIZE, counters=counters,
+                        programs=programs, extra=HAIR_GRAD_KEYS, **SETTINGS)
+              for _ in range(2)]
+    t0 = time.perf_counter()
+    cpu = grad_pass(scene_from_numpy(scene_np, "cpu"), HAIR_GRAD_SIZE,
+                    extra=HAIR_GRAD_KEYS, **SETTINGS)
+    cpu_s = time.perf_counter() - t0
+    for i, rec in enumerate(passes):
+        print(f"hair grad pass {i + 1} ({'captures' if i == 0 else 'replay'}"
+              f"): render_lanes(remat=True) {HAIR_GRAD_SIZE}x{HAIR_GRAD_SIZE}"
+              f"x1 max_steps={SETTINGS['max_steps']} k_volume="
+              f"{SETTINGS['k_volume']}: forward {rec['fwd']:.3f} s, backward "
+              f"{rec['bwd']:.3f} s, peak allocated "
+              f"{rec['peak'] / 2**30:.3f} GiB, launches forward "
+              f"{rec['fwd_counts']}, after the backward {rec['counts']} "
+              f"({card})")
+    print(f"hair grad pass program: {program_line(programs)}; the CPU's "
+          f"pass {cpu_s:.1f} s ({card})")
+    got = passes[1]
+    counts = got["counts"]
+    if not all(counts[k] for k in ("v4.dual", "curve.closest",
+                                   "curve.any_hit")):
+        raise AssertionError(f"the hair gradient pass missed a kernel: "
+                             f"{counts}")
+    for key in ("base_color", "face_emission") + HAIR_GRAD_KEYS:
+        g = got["grads"][key]
+        if not (torch.isfinite(g).all() and g.abs().max() > 0):
+            raise AssertionError(f"hair gradient {key} not finite or zero")
+    if not torch.equal(passes[0]["img"], got["img"]):
+        raise AssertionError("the replayed hair pass's image differs")
+    grads_agree(f"hair grad pass {HAIR_GRAD_SIZE}x{HAIR_GRAD_SIZE}x1: card "
+                "(replayed) vs CPU", got["grads"], cpu["grads"], GRAD_BAND,
+                card)
 
 
 def two_ranks(device):
@@ -1964,7 +2128,7 @@ def rank_main(argv):
 
 
 def path_scenes(dev):
-    """The five paths' scenes (commit on the host, tables to `dev`) and
+    """The six paths' scenes (commit on the host, tables to `dev`) and
     the file path's -> (numpy scenes, scenes, material names, file numpy
     scene, file scene)."""
     from pbrlab_tpu_torch.scene.demo import build_demo_scene
@@ -2067,7 +2231,8 @@ def main():
             for name in PATHS}
     rec = v4_phase(dense_v4, scenes["cornellbox"], *rays["cornellbox"], card)
     rec.update(v5_phase(dense_v5, scenes["mid"], scenes["large"],
-                        rays["mid"], rays["large"], card))
+                        scenes["xl"], rays["mid"], rays["large"],
+                        rays["xl"], card))
     rec.update(curve_phase(dense_curve, scenes["hair"], rays["hair"], card))
     rec.update(v5i_phase(dense_v5i, scenes["instanced"], rays["instanced"],
                          card))
@@ -2082,6 +2247,8 @@ def main():
                   height=32, spp=2, **SETTINGS)
     render_parity("large", scenes_np["large"], scenes["large"], width=32,
                   height=32, spp=2, **SETTINGS)
+    render_parity("xl", scenes_np["xl"], scenes["xl"], width=32, height=32,
+                  spp=2, **SETTINGS)
     render_parity("hair", scenes_np["hair"], scenes["hair"], width=32,
                   height=32, spp=2, **SETTINGS)
     cut = build_instanced(instanced_builder(**PARITY_INSTANCED))
@@ -2094,11 +2261,12 @@ def main():
                       height=32, spp=4, tri_backend=backend, **SETTINGS)
     print(f"phases 1-4 took {time.perf_counter() - t_start:.1f} s")
 
-    # phase 5: the six paths (the file path twice), each render with its
+    # phase 5: the seven paths (the file path twice), each render with its
     # launches counted
     expect = {"cornellbox": (("v4", "dual"), ("v4", "single")),
               "mid": (("v5", "v5_dual"), ("v5", "v5")),
               "large": (("v5", "v5l"),),
+              "xl": (("v5", "v5l"),),
               "hair": (("v4", "dual"), ("curve", "closest"),
                        ("curve", "any_hit")),
               "instanced": (("v5i", "closest"), ("v5i", "any_hit")),
@@ -2155,6 +2323,7 @@ def main():
     t0 = time.perf_counter()
     grad = training_phase(counters, scenes_np["cornellbox"],
                           scenes["cornellbox"], card)
+    hair_grad_phase(counters, scenes_np["hair"], scenes["hair"], card)
     print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # phase 8: the threaded-BVH backend (tri_backend="bvh")
@@ -2196,7 +2365,8 @@ def main():
             ("dense_v5_trace", v5_src, f"{v5_py}:134",
              launches["mid"]["v5.v5"] + grad["v5.v5"], rec["v5"]),
             ("dense_v5l_trace", v5_src, f"{v5_py}:646",
-             launches["large"]["v5.v5l"], rec["v5l"]),
+             launches["large"]["v5.v5l"] + launches["xl"]["v5.v5l"],
+             rec["v5l"]),
             ("dense_curve_trace", "pbrlab_tpu_torch/csrc/dense_curve.cu",
              "pbrlab_tpu/ops/pallas/dense_curve.py:103",
              hair["curve.closest"] + hair["curve.any_hit"], rec["curve"]),
@@ -2246,6 +2416,12 @@ def main():
             f", k_volume 3, phase 6) launched it {scan[key]} times; the "
             f"gradient pass (render_lanes remat, {GRAD_SIZE}x{GRAD_SIZE}x1, "
             f"phase 7) {grad[key]}, forward and backward, included"))
+    row["dense_v5l_trace"]["note"] = (
+        f"launches: the large path's {launches['large']['v5.v5l']} and the "
+        f"xl path's {launches['xl']['v5.v5l']} (both through dense_v5s); "
+        f"times: the large scene's whole tree (xl: "
+        f"{rec['v5l_xl']['ms']:.4f} ms from the group roots, max_abs_err "
+        f"{rec['v5l_xl']['max_abs_err']})")
     row["dense_v1_trace"]["note"] = (
         "on no render path (the JAX package reaches it only from "
         "tests/test_dense.py); launched in phase 3 only")

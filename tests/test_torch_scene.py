@@ -39,9 +39,10 @@ BVH_KEYS = ("bvh_min", "bvh_max", "bvh_skip", "bvh_prim_offset",
                                      irregular=True),
                                 dict(subdiv=4),
                                 dict(subdiv=5, irregular=True),
+                                dict(subdiv=6, irregular=True),
                                 dict(subdiv=3, with_hair=True)],
                          ids=["subdiv1", "subdiv3", "irregular", "subdiv4",
-                              "large", "hair"])
+                              "large", "xl", "hair"])
 def test_commit_matches_jax(kw):
     want, _ = jdemo.build_demo_scene(**kw)
     got, _ = tdemo.build_demo_scene(**kw)
@@ -78,6 +79,18 @@ def test_commit_matches_jax(kw):
         assert got["dense_tris_v5l"].shape == (1827, 3, 128)
         assert got["v5s_roots"].shape == (64,)
         assert got["v5_node_aabb"].shape == (6, 3653)
+    if kw["subdiv"] == 6:  # bench.py's XL scene (bench.py:89-98)
+        assert int((got["face_area"] > 0).sum()) == 163852
+        assert got["tri_v0"].shape[0] == 235328  # slots
+        assert got["dense_tris"].shape == (12, 163968)  # legacy columns
+        assert got["dense_tris_v5l"].shape == (7354, 3, 128)
+        assert got["v5s_roots"].shape == (64,)
+        assert got["v5_node_aabb"].shape == (6, 14707)
+        assert got["bvh_min"].shape == (103315, 3)
+        # ids the JAX kernels carry as float32 stay exact (ROADMAP C8/C9)
+        for key in ("tri_v0", "dense_tris", "bvh_prim_ids"):
+            assert max(got[key].shape[0], got[key].shape[-1]) < 2 ** 24, key
+        assert got["bvh_prim_ids"].max() < 2 ** 24
 
 
 def test_native_build_failure_raises(tmp_path, monkeypatch):

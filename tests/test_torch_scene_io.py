@@ -278,9 +278,11 @@ def test_file_cornellbox_is_the_demo_scene():
     """The file path's scene (chip_smoke.py `load_file_scene`: the
     subdiv=3 cornellbox written as OBJ + MTL + JSON and loaded) commits to
     the demo's triangles and legacy tables bit for bit, 2572 faces, the
-    demo's materials on every face and its one light; the bodies' vertex
-    normals are renormalized under the instances' identity transform (1
-    ulp)."""
+    demo's materials on every face and its one light, but for the floor's
+    base colour, which its PNG checker texture gives (its material is the
+    first the OBJ uses, so the empty slots carry it too); the bodies'
+    vertex normals are renormalized under the instances' identity
+    transform (1 ulp)."""
     from pbrlab_tpu_torch.scene.demo import build_demo_scene
 
     got = _chip_smoke().load_file_scene(subdiv=3)
@@ -291,7 +293,11 @@ def test_file_cornellbox_is_the_demo_scene():
                 "dense_cluster_aabb", "dense_order", "dense_tris_v4"):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     np.testing.assert_allclose(got["face_ns"], want["face_ns"], atol=1e-7)
+    textured = got["materials"]["base_color_tex_id"][got["face_material"]] == 0
+    assert int((textured & (got["face_area"] > 0)).sum()) == 2  # the floor
     for key, col in want["materials"].items():
+        w = col[want["face_material"]]
+        if key == "base_color_tex_id":
+            w = np.where(textured, 0, w)
         np.testing.assert_array_equal(
-            got["materials"][key][got["face_material"]],
-            col[want["face_material"]], err_msg=key)
+            got["materials"][key][got["face_material"]], w, err_msg=key)
