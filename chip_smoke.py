@@ -1274,8 +1274,9 @@ def graph_phase(scenes, file_scene, card):
     synchronised raises (the host's reads sit between phases), then with
     the `EagerRunner`: the images must be bit-equal and the sub-iterations
     and launch counts equal. Prints both walls, each graph's capture and
-    instantiate seconds, replays and nodes, and each render's peak
-    allocated memory. Returns {path: record}."""
+    instantiate seconds and replays (the recorder's render request,
+    `utils.profiling`), its nodes, and each render's peak allocated
+    memory. Returns {path: record}."""
     from pbrlab_tpu_torch.render import graphs
     from pbrlab_tpu_torch.render.integrator import _wavefront
 
@@ -1295,6 +1296,7 @@ def graph_phase(scenes, file_scene, card):
                     c[k] = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            since = newest_request()
             t0 = time.perf_counter()
             fb, iters = _wavefront(runner, scene, size, size, spp, seed=SEED,
                                    tri_backend=backend, **SETTINGS)
@@ -1309,7 +1311,7 @@ def graph_phase(scenes, file_scene, card):
             if kind == "graphs":
                 nodes = runner.nodes()
                 rec["phases"] = {ph: {**st, "nodes": nodes.get(ph)}
-                                 for ph, st in runner.stats.items()}
+                                 for ph, st in phase_table(since).items()}
         g, e = rec["graphs"], rec["eager"]
         err = (g["fb"] - e["fb"]).abs().max().item()
         capture = sum(st["capture_s"] + st["instantiate_s"]
@@ -1376,20 +1378,21 @@ def scan_graph_phase(scenes, file_scene, names, card):
             zero()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            since = newest_request()
             t0 = time.perf_counter()
             img = render_scan(scene, size, size, spp, seed=SEED,
                               tri_backend=backend, programs=programs,
                               **SETTINGS)
             torch.cuda.synchronize()
             rec[kind] = (time.perf_counter() - t0, img.cpu(), launches(),
-                         torch.cuda.max_memory_allocated(), programs)
+                         torch.cuda.max_memory_allocated(), programs, since)
         g, e = rec["graphs"], rec["eager"]
         print(f"graphs scan {name} {size}x{size}x{spp}: graphed {g[0]:.3f} "
               f"s, eager {e[0]:.3f} s, max_abs_err "
               f"{(g[1] - e[1]).abs().max().item()}, peak allocated "
               f"{g[3] / 2**20:.1f} / {e[3] / 2**20:.1f} MiB, launches {g[2]}"
               f" ({card})")
-        print(f"  {program_line(g[4])}")
+        print(f"  {program_line(g[4], g[5])}")
         if not (torch.equal(g[1], e[1]) and g[2] == e[2] and g[1].sum() > 0):
             raise AssertionError(f"scan {name}: the graphed render_scan "
                                  "differs from its phases op by op")
@@ -1397,6 +1400,7 @@ def scan_graph_phase(scenes, file_scene, names, card):
     scene = scenes["cornellbox"]
     passes = {}
     for kind, runner in runners.items():
+        since = newest_request()
         r = ProgressiveRenderer(scene, size, size, seed=SEED,
                                 material_names=names["cornellbox"],
                                 **SETTINGS)
@@ -1417,8 +1421,8 @@ def scan_graph_phase(scenes, file_scene, names, card):
                 accums.append(r.accum.copy())
         finally:
             srv.stop()
-        passes[kind] = (accums, r.pass_times, captured, captures(r.programs),
-                        r.programs)
+        passes[kind] = (accums, pass_seconds(r), captured,
+                        captures(r.programs), r.programs, since)
     g, e = passes["graphs"], passes["eager"]
     same = all(np.array_equal(a, b) for a, b in zip(g[0], e[0]))
     print(f"graphs progressive {size}x{size}, 3 passes, an HTTP edit before "
@@ -1426,7 +1430,7 @@ def scan_graph_phase(scenes, file_scene, names, card):
           f"{[round(t, 4) for t in g[1]]} s, eager "
           f"{[round(t, 4) for t in e[1]]} s; graphs {g[2]} before the edit, "
           f"{g[3]} after ({card})")
-    print(f"  {program_line(g[4])}")
+    print(f"  {program_line(g[4], g[5])}")
     if not same or g[3] != g[2] or np.array_equal(g[0][2], g[0][1]):
         raise AssertionError("the graphed progressive passes differ from "
                              "the eager ones, or the edit recaptured")
@@ -1435,10 +1439,11 @@ def scan_graph_phase(scenes, file_scene, names, card):
         rec = {}
         for kind, runner in runners.items():
             programs = graphs.Programs(runner=runner)
+            since = newest_request()
             rec[kind] = grad_pass(scenes[name], SCAN_GRAD_SIZE,
                                   counters=graphs.COUNTERS, programs=programs,
                                   extra=extra, **SETTINGS)
-            rec[kind]["programs"] = programs
+            rec[kind]["programs"] = programs, since
         g, e = rec["graphs"], rec["eager"]
         same = torch.equal(g["img"], e["img"]) and torch.equal(g["loss"],
                                                                e["loss"])
@@ -1448,7 +1453,7 @@ def scan_graph_phase(scenes, file_scene, names, card):
               f"{g['bwd']:.3f} / {e['bwd']:.3f} s, peak allocated "
               f"{g['peak'] / 2**20:.1f} / {e['peak'] / 2**20:.1f} MiB, "
               f"graphed / eager ({card})")
-        print(f"  {program_line(g['programs'])}")
+        print(f"  {program_line(*g['programs'])}")
         if not same or g["counts"] != e["counts"]:
             raise AssertionError(f"the graphed gradient pass of {name} "
                                  "differs from its phases op by op")
@@ -1551,11 +1556,13 @@ def entry_phase(counters, scene_np, scene, names, card):
     programs = Programs()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    since = newest_request()
     t0 = time.perf_counter()
     scan = render_scan(scene, SCAN_SIZE, SCAN_SIZE, SCAN_SPP, seed=SEED,
                        k_volume=3, programs=programs, **steps).cpu().numpy()
     scan_wall = time.perf_counter() - t0
-    print(f"entry scan program: {program_line(programs)}, peak allocated "
+    print(f"entry scan program: {program_line(programs, since)}, peak "
+          f"allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
     launches = {"v4.dual": counters["v4"]["dual"],
                 "v4.single": counters["v4"]["single"],
@@ -1593,6 +1600,7 @@ def entry_phase(counters, scene_np, scene, names, card):
 
     size = PROGRESSIVE_SIZE
     kw = dict(seed=SEED, k_volume=3, **steps)
+    since = newest_request()
     r = ProgressiveRenderer(scene, size, size, material_names=names, **kw)
     srv = PreviewServer(r, max_pass=8)
     port = srv.start(port=0)
@@ -1649,9 +1657,10 @@ def entry_phase(counters, scene_np, scene, names, card):
           f"bit-equal to render_sample, their average bit-equal to "
           f"render_scan(spp=3), an HTTP /edit reset to pass 1 with a new "
           f"image, /image.png {size}x{size}, checkpoint round trip; "
-          f"pass times {[round(t, 3) for t in r.pass_times]} s; phase "
+          f"pass times {[round(t, 3) for t in pass_seconds(r)]} s; phase "
           f"wall {wall:.3f} s; the renderer's program: "
-          f"{program_line(r.programs)}, unchanged by the edit ({card})")
+          f"{program_line(r.programs, since)}, unchanged by the edit "
+          f"({card})")
     return launches
 
 
@@ -1780,15 +1789,51 @@ def grads_agree(name, got, want, band, card):
           f"(band {band} of max |ref|, + 1e-6) ({card})")
 
 
+def pass_seconds(renderer):
+    """The walls of a progressive renderer's passes, from the recorder's
+    `progressive.pass` requests (none with PBRLAB_TRACE=0)."""
+    from pbrlab_tpu_torch.utils import profiling
+
+    return [rec["dur_ns"] / 1e9 for rec in profiling.records()
+            if rec["name"] == "progressive.pass"
+            and rec["attrs"]["renderer"] == id(renderer)]
+
+
 def captures(programs):
     """Graphs captured by the programs of a `Programs`."""
     return sum(len(getattr(p.runner, "graphs", ()))
                for p in programs.programs.values())
 
 
-def program_line(programs):
-    """Each program's phases: nodes, capture + instantiate seconds,
-    replays (a graph runner's), as one line."""
+def newest_request():
+    """The id of the recorder's newest request (0: none yet)."""
+    from pbrlab_tpu_torch.utils import profiling
+
+    return max([rec["id"] for rec in profiling.records()], default=0)
+
+
+def phase_table(since):
+    """Per phase, over the recorder's requests after request id `since`:
+    capture and instantiate seconds and replays (empty with
+    PBRLAB_TRACE=0)."""
+    from pbrlab_tpu_torch.utils import profiling
+
+    table = {}
+    for rec in profiling.records(since):
+        for ph, st in rec["phases"].items():
+            row = table.setdefault(ph, {"capture_s": 0.0,
+                                        "instantiate_s": 0.0, "replays": 0})
+            for key in row:
+                row[key] += st[key]
+    return table
+
+
+def program_line(programs, since):
+    """Each program's phases (a graph runner's): nodes, then capture +
+    instantiate seconds and replays over the requests after `since`
+    (`phase_table`; phases of one name summed over the programs), as one
+    line."""
+    table = phase_table(since)
     parts = []
     for prog in programs.programs.values():
         runner = prog.runner
@@ -1796,9 +1841,10 @@ def program_line(programs):
             continue
         nodes = runner.nodes()
         parts.append(", ".join(
-            f"{ph} {nodes.get(ph)} nodes / "
-            f"{st['capture_s'] + st['instantiate_s']:.3f} s / "
-            f"{st['replays']} replays" for ph, st in runner.stats.items()))
+            f"{ph} {n} nodes / "
+            f"{table[ph]['capture_s'] + table[ph]['instantiate_s']:.3f} s / "
+            f"{table[ph]['replays']} replays" if ph in table else
+            f"{ph} {n} nodes" for ph, n in nodes.items()))
     return "; ".join(parts) or "no graphs"
 
 
@@ -1857,13 +1903,14 @@ def training_phase(counters, scene_np, scene, card):
     dev = scene["aabb_min"].device
     base_mem = torch.cuda.memory_allocated(dev)
     programs = Programs()
+    since = newest_request()
     graphed = grad_pass(scene, GRAD_SIZE, counters=counters,
                         programs=programs, **SETTINGS)
     grads, counts, fwd_counts = (graphed["grads"], graphed["counts"],
                                  graphed["fwd_counts"])
     norms = {k: None if g is None else float(g.abs().max())
              for k, g in grads.items()}
-    line = program_line(programs)
+    line = program_line(programs, since)
     del programs  # the eager pass's peak without the program's buffers
     torch.cuda.empty_cache()
     tape = grad_pass(scene, GRAD_SIZE, counters=counters, tape=True,
@@ -1950,6 +1997,7 @@ def training_phase(counters, scene_np, scene, card):
                                      max_steps=4)
     runs = []
     for run in range(2):  # the second run: C12, the same steps again
+        since = newest_request()
         t0 = time.perf_counter()
         # the loss sums squares over the pixels: the 8x8 test's lr of 0.2
         # scaled to the pixel count keeps its step
@@ -1967,7 +2015,7 @@ def training_phase(counters, scene_np, scene, card):
               f"{TRAIN_SIZE}x1 towards the atlas x 0.5, {TRAIN_STEPS} steps "
               f"on {mesh}: losses {losses}, atlas moved {moved:.4g}, "
               f"{time.perf_counter() - t0:.3f} s; its kept program: "
-              f"{program_line(step.programs)} ({card})")
+              f"{program_line(step.programs, since)} ({card})")
         if not (losses[-1] < 0.9 * losses[0] and moved > 1e-4):
             raise AssertionError("the train step did not lower the loss")
     (l1, a1), (l2, a2) = runs
@@ -2029,6 +2077,7 @@ def hair_grad_phase(counters, scene_np, scene, card):
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
 
     programs = Programs()
+    since = newest_request()
     passes = [grad_pass(scene, HAIR_GRAD_SIZE, counters=counters,
                         programs=programs, extra=HAIR_GRAD_KEYS, **SETTINGS)
               for _ in range(2)]
@@ -2045,7 +2094,8 @@ def hair_grad_phase(counters, scene_np, scene, card):
               f"{rec['peak'] / 2**30:.3f} GiB, launches forward "
               f"{rec['fwd_counts']}, after the backward {rec['counts']} "
               f"({card})")
-    print(f"hair grad pass program: {program_line(programs)}; the CPU's "
+    print(f"hair grad pass program: {program_line(programs, since)}; the "
+          f"CPU's "
           f"pass {cpu_s:.1f} s ({card})")
     got = passes[1]
     counts = got["counts"]

@@ -155,8 +155,7 @@ class PreviewServer:
                     body = json.dumps({
                         "pass": srv.r.num_passes,
                         "max_pass": srv.max_pass,
-                        "pass_seconds": (srv.r.pass_times[-1]
-                                         if srv.r.pass_times else None),
+                        "pass_seconds": srv.r.pass_seconds,
                     }).encode()
                     self._send(200, body, "application/json")
                 elif self.path.startswith("/materials"):

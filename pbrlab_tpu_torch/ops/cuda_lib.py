@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils import profiling
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -46,28 +48,34 @@ def build_library():
     out = _BUILD_DIR / f"libpbrlab_cuda_{digest.hexdigest()[:16]}.so"
     log = out.with_suffix(".log")
     if not out.exists():
-        work = _BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
-        work.mkdir(parents=True, exist_ok=True)
-        objs = [work / f"{s.stem}.o" for s in sources()]
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", str(s), "-o",
-                                   str(o)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for s, o in zip(sources(), objs)]
-        text = []
-        for src, proc in zip(sources(), procs):
-            stdout, _ = proc.communicate()
-            text.append(f"== {src.name}\n{stdout}")
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{stdout}")
-        proc = subprocess.run([_nvcc(), *ARCH, "-shared", "-o",
-                               str(work / out.name), *map(str, objs)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
-        log.write_text("\n".join(text))
-        os.replace(work / out.name, out)
-        shutil.rmtree(work)
+        with profiling.span("cuda_lib.build", library=out.name):
+            _compile(out, log)
     return out, log.read_text() if log.exists() else ""
+
+
+def _compile(out: Path, log: Path):
+    """nvcc every source into an object, all at once, and link `out`."""
+    work = _BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    work.mkdir(parents=True, exist_ok=True)
+    objs = [work / f"{s.stem}.o" for s in sources()]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", str(s), "-o",
+                               str(o)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(sources(), objs)]
+    text = []
+    for src, proc in zip(sources(), procs):
+        stdout, _ = proc.communicate()
+        text.append(f"== {src.name}\n{stdout}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{stdout}")
+    proc = subprocess.run([_nvcc(), *ARCH, "-shared", "-o",
+                           str(work / out.name), *map(str, objs)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
+    log.write_text("\n".join(text))
+    os.replace(work / out.name, out)
+    shutil.rmtree(work)
 
 
 def function(name: str, argtypes):
@@ -75,7 +83,9 @@ def function(name: str, argtypes):
     its argument types set and an int (cudaError_t) result."""
     global _lib
     if _lib is None:
-        _lib = ctypes.CDLL(str(build_library()[0]))
+        path = build_library()[0]
+        with profiling.span("cuda_lib.load", library=path.name):
+            _lib = ctypes.CDLL(str(path))
     fn = getattr(_lib, name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

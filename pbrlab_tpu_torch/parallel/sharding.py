@@ -22,6 +22,7 @@ import torch
 from ..render.graphs import Programs
 from ..render.integrator import _mean, render_lanes, render_lanes_wavefront
 from ..scene.scene import build_fat_tables
+from ..utils import profiling
 
 # the train step's differentiable leaves: six material columns, and the
 # per-face emission and texture atlas of the scene
@@ -107,7 +108,9 @@ def train_step_builder(width: int, height: int, spp: int,
     clipped at 0. The fat tables are built inside from the leaves. The
     gradient passes run through compiled programs (CUDA graphs on the
     card, forward and per-depth backward) that the step keeps from one
-    call to the next, in `train_step.programs`.
+    call to the next, in `train_step.programs`. A step is a `train.step`
+    request of `utils.profiling`, its passes' forward and backward
+    `lanes.forward` and `lanes.backward` spans.
     `new_scene` is a new dict on the scene's devices; `scene` is not
     changed. The reference's training surface is its GUI edit loop
     (pc/pc-common.h EditQueue); here the same parameters descend a
@@ -118,6 +121,11 @@ def train_step_builder(width: int, height: int, spp: int,
     programs = Programs()
 
     def train_step(scene: Dict, target: torch.Tensor):
+        with profiling.span("train.step", width=width, height=height,
+                            spp=spp):
+            return _step(scene, target)
+
+    def _step(scene, target):
         tgt = target.detach().reshape(-1, 3)
         tgt = torch.cat([tgt, tgt[-1:].expand(lanes.shape[0] - n, 3)])
         params = {k: scene["materials"][k] for k in GRAD_KEYS}
@@ -133,15 +141,17 @@ def train_step_builder(width: int, height: int, spp: int,
             s = build_fat_tables(s)
             lane = lanes[i * per:(i + 1) * per].to(dev)
             acc = 0.0
-            for sample_id in range(spp):
-                acc = acc + render_lanes(s, width, height, sample_id, 0,
-                                         max_steps, lane, remat=True,
-                                         k_volume=k_volume,
-                                         programs=programs)
+            with profiling.span("lanes.forward"):
+                for sample_id in range(spp):
+                    acc = acc + render_lanes(s, width, height, sample_id, 0,
+                                             max_steps, lane, remat=True,
+                                             k_volume=k_volume,
+                                             programs=programs)
             shard_loss = ((acc / spp - tgt[i * per:(i + 1) * per].to(dev))
                           ** 2).sum()
-            g = torch.autograd.grad(shard_loss, list(leaves.values()),
-                                    allow_unused=True)
+            with profiling.span("lanes.backward"):
+                g = torch.autograd.grad(shard_loss, list(leaves.values()),
+                                        allow_unused=True)
             for key, gk in zip(leaves, g):
                 if gk is not None:  # an unread leaf (a scene's dummy atlas)
                     grads[key] = grads[key] + gk.to(grads[key].device)

@@ -31,6 +31,26 @@ once and replayed by every later call; what changes between calls (the
 sample id, the seed, the material columns) is written into its buffers
 (`put`, `copy_`).
 
+Spans and device times (`utils.profiling`): `GraphRunner` records a
+span around each warm-up (`graphs.warmup`), capture (`graphs.capture`),
+instantiation (`graphs.instantiate`), replay (`graphs.launch`, the host
+time inside `replay()`) and read (`graphs.read`, the host blocked until
+the probe's word arrives), each warm-up, capture and launch carrying its
+phase; a pair of timing events on the current stream brackets each
+warm-up and each replay, resolved into the request's `warmup_device_ms.
+<phase>` and `device_ms.<phase>` by a later read, before it waits (or by
+`profiling.records()`), never by a wait of their own; a capture's nodes
+count into `nodes.<phase>`. A read waits on a timing event, which opens
+the pair of the phase run next: a pair opened after the wait would put
+its first event's record (~0.085 ms of host time on an H100, the first
+submission after the stream went idle) on the host's path while the
+device waits. A phase run right after a read therefore counts in its
+device ms the read's round trip (the device idle from the probe's copy
+to the launch); a capture drops the armed event. `EagerRunner` records `graphs.eager` and
+`graphs.read` spans, the same tree op by op. A request's per-phase table
+(host seconds, replays, device ms) is built from these alone
+(`profiling.records()`'s `phases`).
+
 Launch counts: the kernel wrappers add one to their module's `LAUNCHES`
 where they launch, which under capture records and does not launch. A
 capture therefore keeps the counts it added as the graph's own and takes
@@ -40,12 +60,12 @@ launches of its eager twin.
 from __future__ import annotations
 
 import ctypes
-import time
 
 import torch
 
 from ..ops import (bvh_walk, dense, dense_curve, dense_v2, dense_v3,
                    dense_v4, dense_v5, dense_v5i)
+from ..utils import profiling
 
 # every kernel wrapper's launch counter, by module
 COUNTERS = {"v4": dense_v4.LAUNCHES, "v5": dense_v5.LAUNCHES,
@@ -99,78 +119,129 @@ class EagerRunner:
     """Runs each phase op by op; reads a probe with a host sync."""
 
     def run(self, name, phase):
-        phase()
+        with profiling.span("graphs.eager", phase=name):
+            phase()
 
     def read(self, probe) -> int:
-        return int(probe)
+        with profiling.span("graphs.read"):
+            return int(probe)
 
 
 class GraphRunner:
     """Runs each phase of one render call as a CUDA graph on the current
-    device (see the module docstring). `stats` holds, per phase, the
-    capture and instantiate seconds and the replays; `nodes()` the
-    captured nodes per graph. `cuda` is the `torch.cuda` namespace (a
-    test passes a fake with the same names)."""
+    device (see the module docstring). `warm` holds the phases run once;
+    `nodes()` the captured nodes per graph. `cuda` is the `torch.cuda`
+    namespace (a test passes a fake with the same names)."""
 
     def __init__(self, cuda=torch.cuda):
         self.cuda = cuda
         self.pool = cuda.graph_pool_handle()
         self.graphs = {}  # phase -> (graph, launches it captured)
-        self.stats = {}  # phase -> capture_s, instantiate_s, replays
+        self.warm = set()  # phases run once, op by op
         self._pinned = None
         self._event = None
+        self._timers = []  # timing events free for a pair
+        self._armed = None  # the last read's timing event, opening a pair
 
     def run(self, name, phase):
-        if name not in self.stats:  # warm-up
-            phase()
-            self.stats[name] = {"capture_s": 0.0, "instantiate_s": 0.0,
-                                "replays": 0}
+        if name not in self.warm:
+            with profiling.span("graphs.warmup", phase=name):
+                self._timed("warmup_device_ms." + name, phase)
+            self.warm.add(name)
             return
         if name not in self.graphs:
+            self._disarm()  # the capture leaves the device idle
             self._capture(name, phase)
         graph, launches = self.graphs[name]
-        graph.replay()
+        self._timed("device_ms." + name, self._launch, graph, name)
         for (m, k), n in launches.items():
             COUNTERS[m][k] += n
-        self.stats[name]["replays"] += 1
+
+    @staticmethod
+    def _launch(graph, name):
+        with profiling.span("graphs.launch", phase=name):
+            graph.replay()
+
+    def _timed(self, counter, fn, *args):
+        """fn(*args) between two timing events on the current stream (the
+        first the last read's, if armed), their interval counted into the
+        request's `counter` once passed (with the recorder off, fn
+        alone)."""
+        if not profiling.RECORDER.on:
+            fn(*args)
+            return
+        start, self._armed = self._armed, None
+        if start is None:
+            start = self._timer()
+            start.record()
+        fn(*args)
+        end = self._timer()
+        end.record()
+        profiling.device_interval(counter, start, end, self._free)
+
+    def _timer(self):
+        return (self._timers.pop() if self._timers else
+                self.cuda.Event(enable_timing=True))
+
+    def _free(self, start, end):
+        self._timers += (start, end)
+
+    def _disarm(self):
+        if self._armed is not None:
+            self._timers.append(self._armed)
+            self._armed = None
 
     def _capture(self, name, phase):
         before = _counts()
         graph = self.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        with self.cuda.graph(graph, pool=self.pool):
-            phase()
-        t1 = time.perf_counter()
-        graph.instantiate()
-        t2 = time.perf_counter()
+        with profiling.span("graphs.capture", phase=name):
+            with self.cuda.graph(graph, pool=self.pool):
+                phase()
+        with profiling.span("graphs.instantiate", phase=name):
+            graph.instantiate()
         launches = {key: n - before[key] for key, n in _counts().items()
                     if n != before[key]}
         for (m, k) in launches:  # the capture launched nothing
             COUNTERS[m][k] = before[(m, k)]
         self.graphs[name] = (graph, launches)
-        self.stats[name].update(capture_s=t1 - t0, instantiate_s=t2 - t1)
+        if self.cuda is torch.cuda:  # a fake's graphs have no nodes
+            profiling.count("nodes." + name, _node_count(graph))
 
     def read(self, probe) -> int:
         """The probe's value through one pinned host word: a copy after
-        the work queued so far, then one wait on an event."""
-        if self._pinned is None:
-            self._pinned = torch.empty((), dtype=torch.int64,
-                                       pin_memory=True)
-            self._event = self.cuda.Event()
-        self._pinned.copy_(probe, non_blocking=True)
-        self._event.record()
-        self._event.synchronize()
+        the work queued so far, then one wait on an event (with the
+        recorder on, a timing event, armed to open the next phase's
+        pair). The timing pairs that have completed are resolved first,
+        while the device still runs the last phase."""
+        with profiling.span("graphs.read"):
+            if self._pinned is None:
+                self._pinned = torch.empty((), dtype=torch.int64,
+                                           pin_memory=True)
+            self._pinned.copy_(probe, non_blocking=True)
+            self._disarm()
+            if profiling.RECORDER.on:
+                event = self._armed = self._timer()
+            else:
+                if self._event is None:
+                    self._event = self.cuda.Event()
+                event = self._event
+            event.record()
+            profiling.resolve()
+            event.synchronize()
         return int(self._pinned)
 
     def nodes(self) -> dict:
         """Nodes per captured graph (libcuda's cuGraphGetNodes)."""
-        cuda = ctypes.CDLL("libcuda.so.1")
-        out = {}
-        for name, (graph, _) in self.graphs.items():
-            count = ctypes.c_size_t(0)
-            rc = cuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
-                                      None, ctypes.byref(count))
-            if rc != 0:
-                raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
-            out[name] = count.value
-        return out
+        return {name: _node_count(graph)
+                for name, (graph, _) in self.graphs.items()}
+
+
+def _node_count(graph) -> int:
+    """A captured graph's nodes (libcuda's cuGraphGetNodes)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    count = ctypes.c_size_t(0)
+    rc = cuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                              None, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return count.value

@@ -86,6 +86,7 @@ from ..scene.textures import fetch_float3_quad
 from ..shading import hair, principled
 from ..shading.principled import PrincipledBsdf
 from ..shading.sss import sample_scatter_distance, scattering_coefficients
+from ..utils import profiling
 from .camera import generate_rays
 from .graphs import EagerRunner, GraphRunner, Programs, put
 
@@ -827,6 +828,10 @@ class _LanesProgram:
     def load(self, scene):
         """Copy the caller's tensors that changed since the last load
         (another tensor, or one written in place) into the program's."""
+        with profiling.span("lanes.load"):
+            self._load(scene)
+
+    def _load(self, scene):
         for path, src in _tensors(scene):
             last = self._loaded.get(path)
             if last is None or last[0] is not src or last[1] != src._version:
@@ -1037,6 +1042,11 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
     package's compiled loop; on the CPU they run op by op. The host reads
     only what the JAX body branches on: the loop test once every
     flush_every sub-iterations and the window test once a sub-iteration.
+
+    The call is a `render` request of `utils.profiling` (when no span is
+    open) counting `subiters`, `lane_slots` (n_lanes x sub-iterations)
+    and `lanes_alive` (the alive lanes entering each full step, summed on
+    the device and read with the last loop test).
     """
     fb, it = _wavefront(None, scene, width, height, spp, seed, max_steps,
                         k_volume, n_lanes, vol_window, flush_every,
@@ -1054,13 +1064,14 @@ def _wavefront(runner, scene, width: int, height: int, spp: int, seed=0,
     (summed radiance, sub-iterations). With an `EagerRunner` on the card
     it is the loop op by op, which `chip_smoke.py` and a test hold the
     graphs against."""
-    loop = _WavefrontLoop(scene, width, height, spp, seed, max_steps,
-                          k_volume, n_lanes, vol_window, flush_every,
-                          tri_backend, lane)
-    if loop.dev.type != "cuda":
-        return loop.run(runner or EagerRunner())
-    with torch.cuda.device(loop.dev):
-        return loop.run(runner or GraphRunner())
+    with profiling.request("render", width=width, height=height, spp=spp):
+        loop = _WavefrontLoop(scene, width, height, spp, seed, max_steps,
+                              k_volume, n_lanes, vol_window, flush_every,
+                              tri_backend, lane)
+        if loop.dev.type != "cuda":
+            return loop.run(runner or EagerRunner())
+        with torch.cuda.device(loop.dev):
+            return loop.run(runner or GraphRunner())
 
 
 class _WavefrontLoop:
@@ -1072,8 +1083,12 @@ class _WavefrontLoop:
     pixel ids `lane`. A phase reads them and the scene's tables and ends
     by writing its results into them in place, so a CUDA graph of it
     reads and writes the captured addresses on every replay; what the
-    host branches on it leaves in `probe` (0-dim int64). `run` issues the
-    phases in the JAX body's order through a runner (`render.graphs`)."""
+    host branches on it leaves in `probe` (0-dim int64). With the
+    recorder on (`utils.profiling`, read when the loop is made) `lanes`
+    (0-dim int64) sums the alive lanes entering each full step and the
+    flush puts it in the probe above the loop test's bit; with it off
+    neither is captured. `run` issues the phases in the JAX body's order
+    through a runner (`render.graphs`)."""
 
     def __init__(self, scene, width, height, spp, seed, max_steps, k_volume,
                  n_lanes, vol_window, flush_every, tri_backend, lane):
@@ -1111,6 +1126,8 @@ class _WavefrontLoop:
         self.next_pixel = torch.full((), n_lanes, dtype=i32, device=dev)
         self.probe = torch.zeros((), dtype=torch.int64, device=dev)
         self.probe.copy_(self._pending())
+        self.count_lanes = profiling.RECORDER.on
+        self.lanes = torch.zeros((), dtype=torch.int64, device=dev)
 
     def run(self, runner):
         """The while loop -> (fb, sub-iterations). Per trip (`cond` at
@@ -1119,9 +1136,15 @@ class _WavefrontLoop:
         (B-win) if the walkers fit the window (`lax.cond` at :1210), else
         (B-full); without the window but with substeps: (A-head), (B-any)
         if a lane walks (`lax.cond` at :1168), (A-tail); without
-        substeps: (A)."""
-        it = 0
-        while it < self.cap and runner.read(self.probe):  # loop test
+        substeps: (A). With `count_lanes` the loop test's read brings the
+        lanes counted so far above its bit; the last one's are counted
+        into the request (`utils.profiling`)."""
+        it = alive = 0
+        while it < self.cap:
+            word = runner.read(self.probe)  # the loop test
+            alive = word >> 1
+            if not word & 1:
+                break
             for _ in range(self.flush_every):
                 if self.window_ok:
                     runner.run("A", self.full_step)
@@ -1147,6 +1170,10 @@ class _WavefrontLoop:
             & torch.isfinite(state.contribution), state.contribution, 0.0)
         self.fb.index_add_(0, torch.clamp(state.lane, max=n - 1).to(
             torch.int64), self.packed[:, _PACK_COLS:_PACK_COLS + 3] + contrib)
+        profiling.count("subiters", it)
+        profiling.count("lane_slots", self.n_lanes * it)
+        if self.count_lanes:
+            profiling.count("lanes_alive", alive)
         return self.fb, it
 
     # --- phases ----------------------------------------------------------
@@ -1194,7 +1221,8 @@ class _WavefrontLoop:
     def flush(self):
         """(F) the amortized framebuffer flush: every pend slot drained
         once a trip (a pixel is in at most one slot; empty slots add 0 to
-        pixel 0) and emptied; the loop test in the probe."""
+        pixel 0) and emptied; the loop test in the probe's low bit, the
+        lanes counted so far above it (`count_lanes`)."""
         pc = _PACK_COLS
         pend_pix = self.packed[:, pc + 6].to(torch.int64)
         self.fb.index_add_(0, torch.clamp(pend_pix, 0, self.n - 1),
@@ -1202,7 +1230,10 @@ class _WavefrontLoop:
                                        self.packed[:, pc + 3:pc + 6], 0.0))
         self.packed[:, pc + 3:pc + 6] = 0.0
         self.packed[:, pc + 6] = -1.0
-        self.probe.copy_(self._pending())
+        if self.count_lanes:
+            self.probe.copy_(self._pending() + 2 * self.lanes)
+        else:
+            self.probe.copy_(self._pending())
 
     # --- their parts -----------------------------------------------------
 
@@ -1228,13 +1259,16 @@ class _WavefrontLoop:
 
     def _refill_step(self):
         """Refill, one full wavefront_step and the depth count -> the new
-        packed rows (a new tensor); advances next_pixel."""
+        packed rows (a new tensor); advances next_pixel and adds the
+        lanes it steps to `lanes` (`count_lanes`)."""
         pc = _PACK_COLS
         p = self.packed
         state, pix_acc, pend_rgb, pend_pix = self._refill(
             unpack_state(p), p[:, pc:pc + 3], p[:, pc + 3:pc + 6],
             p[:, pc + 6].to(torch.int32))
         stepped = state.alive
+        if self.count_lanes:
+            self.lanes += stepped.sum()
         state = wavefront_step(self.scene, state,
                                tri_backend=self.tri_backend)
         state = state._replace(depth=torch.where(stepped, state.depth + 1,
@@ -1314,9 +1348,10 @@ def render(scene, width: int, height: int, spp: int, seed=0,
     """spp-sample mean radiance [H, W, 3] via the persistent-lane
     wavefront; tri_backend forces the triangle backend (None: the
     scene's); kwargs go to `render_lanes_wavefront`."""
-    total = render_lanes_wavefront(scene, width, height, spp, seed,
-                                   max_steps, k_volume=k_volume,
-                                   tri_backend=tri_backend, **kwargs)
+    with profiling.request("render", width=width, height=height, spp=spp):
+        total = render_lanes_wavefront(scene, width, height, spp, seed,
+                                       max_steps, k_volume=k_volume,
+                                       tri_backend=tri_backend, **kwargs)
     return _mean(total.reshape(height, width, 3), spp)
 
 
@@ -1388,13 +1423,15 @@ def render_scan(scene, width: int, height: int, spp: int, seed=0,
     persistent lanes. tri_backend forces the triangle backend. The
     samples run through one compiled program (kept in `programs` when
     given) and sum into one device buffer, as the JAX package's
-    `lax.scan` carries its accumulator."""
-    if "mat_fat" not in scene:
-        scene = build_fat_tables(scene)
-    prog = _lanes_program(programs or Programs(), scene, width, height,
-                          None, max_steps, 2, k_volume, tri_backend)
-    acc = torch.zeros_like(prog.out)
-    for sample_id in range(spp):
-        prog.forward(scene, sample_id, seed, None)
-        acc += prog.out
-    return _mean(acc.reshape(height, width, 3), spp)
+    `lax.scan` carries its accumulator. The call is a `render` request
+    of `utils.profiling` when no span is open."""
+    with profiling.request("render", width=width, height=height, spp=spp):
+        if "mat_fat" not in scene:
+            scene = build_fat_tables(scene)
+        prog = _lanes_program(programs or Programs(), scene, width, height,
+                              None, max_steps, 2, k_volume, tri_backend)
+        acc = torch.zeros_like(prog.out)
+        for sample_id in range(spp):
+            prog.forward(scene, sample_id, seed, None)
+            acc += prog.out
+        return _mean(acc.reshape(height, width, 3), spp)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..scene.scene import build_fat_tables
+from ..utils import profiling
 from .graphs import Programs
 from .integrator import FAT_KEYS, render_sample
 
@@ -74,8 +75,8 @@ class ProgressiveRenderer:
         self.material_names = list(material_names or [])
         self.accum = np.zeros((height, width, 3), np.float32)
         self.num_passes = 0
+        self.pass_seconds: Optional[float] = None  # the last pass's wall
         self._edit_queue: List = []
-        self.pass_times: List[float] = []
         self.programs = Programs()  # the passes' compiled program
 
     # -- edits (EditQueue semantics: applied between passes) -------------
@@ -89,9 +90,7 @@ class ProgressiveRenderer:
         reference defaults of material-param.h."""
         self._edit_queue.append(ReplaceEdit(material, kind, params or {}))
 
-    def _apply_edits(self) -> bool:
-        if not self._edit_queue:
-            return False
+    def _apply_edits(self) -> None:
         from ..scene.materials import ALL_COLUMNS, lookup
 
         mats = dict(self.scene["materials"])
@@ -120,7 +119,6 @@ class ProgressiveRenderer:
         scene = {k: v for k, v in self.scene.items() if k not in FAT_KEYS}
         scene["materials"] = mats
         self.scene = build_fat_tables(scene)
-        return True
 
     def rerender(self) -> None:
         """Cancel + reset accumulation (RequestRerender semantics)."""
@@ -130,24 +128,31 @@ class ProgressiveRenderer:
     # -- passes -----------------------------------------------------------
     def step(self) -> np.ndarray:
         """Render one pass, folding queued edits in first; returns the
-        running average image."""
-        if self._apply_edits():
-            # edits invalidate the accumulated estimate, like Rerender
-            self.rerender()
-        t0 = time.time()
-        img = render_sample(self.scene, self.width, self.height,
-                            self.num_passes, seed=self.seed,
-                            max_steps=self.max_steps,
-                            k_volume=self.k_volume,
-                            programs=self.programs).cpu().numpy()
-        self.pass_times.append(time.time() - t0)
-        self.accum += img
-        self.num_passes += 1
+        running average image; its wall goes to `pass_seconds`. The pass
+        is a `progressive.pass` request of `utils.profiling` (its
+        `renderer` is id(self)), an edit in it a `progressive.edit`
+        span."""
+        t0 = time.perf_counter()
+        with profiling.span("progressive.pass", renderer=id(self)):
+            if self._edit_queue:
+                with profiling.span("progressive.edit",
+                                    edits=len(self._edit_queue)):
+                    self._apply_edits()
+                # edits invalidate the accumulated estimate, like Rerender
+                self.rerender()
+            img = render_sample(self.scene, self.width, self.height,
+                                self.num_passes, seed=self.seed,
+                                max_steps=self.max_steps,
+                                k_volume=self.k_volume,
+                                programs=self.programs).cpu().numpy()
+            self.accum += img
+            self.num_passes += 1
+        self.pass_seconds = time.perf_counter() - t0
         from ..utils import log as plog
 
         plog.event(plog.get_logger("progressive"), "finish pass",
                    pass_id=self.num_passes,
-                   seconds=round(self.pass_times[-1], 4))
+                   seconds=round(self.pass_seconds, 4))
         return self.average()
 
     def render_until(self, max_pass: int,

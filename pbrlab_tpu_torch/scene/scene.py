@@ -30,6 +30,7 @@ from ..ops.build import build_v5, leaf_major, subtree_cut
 from ..ops.curves import flatten_curves, subsegment_bounds
 from ..ops.dense import pack_triangles
 from ..ops.dense_curve import pack_segments
+from ..utils import profiling
 from .materials import MaterialBuilder, pack_material_fat
 from .textures import build_quad_atlas
 
@@ -443,7 +444,13 @@ def build_fat_tables(scene: Dict) -> Dict:
     mat_fat [M, K]: see materials.fat_layout().
     texture_quad [T, H, W, 4C]: a textured scene's quad-texel atlas
       (`textures.build_quad_atlas`).
+    A `scene.build_fat_tables` span of `utils.profiling`.
     """
+    with profiling.span("scene.build_fat_tables"):
+        return _build_fat_tables(scene)
+
+
+def _build_fat_tables(scene: Dict) -> Dict:
     scene = dict(scene)
     f32 = torch.float32
     lf = scene["emissive_faces"].to(torch.int64)

@@ -1,5 +1,5 @@
 """Profiling and observability (port of pbrlab_tpu.utils.profiling):
-ray-count probes, a rays/s meter and profiler traces.
+ray-count probes, the span recorder and profiler traces.
 
 * `step_occupancy(scene, ...)`: the alive-lane fraction before each full
   step of one sample, on the scene's device.
@@ -14,16 +14,20 @@ ray-count probes, a rays/s meter and profiler traces.
   their plain twins on the CPU), which can move a tied or grazing lane,
   unless the caller passes `tri_backend="bvh"`, which computes what the
   JAX probes compute.
-* `RaysMeter`: accumulates (rays, seconds) over timed render calls.
-* `trace(logdir)`: a `torch.profiler` window written as a Chrome trace.
+* The recorder: `span(name, **attrs)` and `count(name, n)` at the
+  program's layer boundaries, kept in memory, read back by `records()`.
+* `trace(logdir)`: a `torch.profiler` window written as a Chrome trace,
+  the recorder's spans of the window merged into it.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
-from dataclasses import dataclass, field
-from typing import List
+from collections import defaultdict, deque
 
 import torch
 
@@ -124,55 +128,260 @@ def measure_occupancy(scene_np, max_steps: int, probe: int = 128,
                            tri_backend=tri_backend).sum())
 
 
-@dataclass
-class RaysMeter:
-    """Accumulates timed render work and reports throughput.
+# --- the recorder --------------------------------------------------------
+#
+# Spans at the program's layer boundaries (the entry points, the graph
+# runner, the kernel library's build, the fat tables' build) and counts
+# beside them, kept in memory and read back with `records()`. The
+# outermost open span starts a request; every span records its request
+# and its parent. Requests run one at a time in a process (the CLI, the
+# viewer's render loop, a train loop): a span opened on another thread
+# while one is open, as autograd's device thread runs a backward, is a
+# child of the innermost open span. Spans are stamped on the profiler
+# trace's host clock (Unix ns, Kineto's `baseTimeNanoseconds` + ts x
+# 1000) from a monotonic clock anchored to it once. The recorder is on
+# unless PBRLAB_TRACE=0; off, `span` costs one attribute test.
 
-    rays per sample-pass = n_pixels * occupancy_steps * 2
-    (one closest hit + one any-hit trace per alive lane per step).
-    """
+_UNIX0 = time.time_ns()
+_MONO0 = time.perf_counter_ns()
+PENDING = 256  # event pairs waiting before a `device_interval` resolves
 
-    n_pixels: int
-    occupancy_steps: float
-    rays: float = 0.0
-    seconds: float = 0.0
-    laps: List[float] = field(default_factory=list)
 
-    @contextlib.contextmanager
-    def lap(self, spp: int = 1):
-        """Time a block that renders `spp` sample passes (the block ends
-        its device work, e.g. with torch.cuda.synchronize())."""
-        t0 = time.perf_counter()
-        yield
-        dt = time.perf_counter() - t0
-        self.laps.append(dt)
-        self.seconds += dt
-        self.rays += self.n_pixels * spp * self.occupancy_steps * 2.0
+def _now_ns() -> int:
+    """Unix time in ns on the monotonic clock."""
+    return _UNIX0 + time.perf_counter_ns() - _MONO0
 
-    @property
-    def mrays_per_s(self) -> float:
-        return self.rays / max(self.seconds, 1e-12) / 1e6
 
-    def report(self) -> dict:
-        return {
-            "rays": self.rays,
-            "seconds": round(self.seconds, 4),
-            "mrays_per_s": round(self.mrays_per_s, 3),
-            "laps": len(self.laps),
-        }
+class _Request:
+    __slots__ = ("id", "name", "attrs", "t0", "t1", "counters")
+
+    def __init__(self, rid, name, attrs):
+        self.id, self.name, self.attrs = rid, name, attrs
+        self.t0 = self.t1 = 0
+        self.counters = {}
+
+
+class Recorder:
+    """The spans of the last `capacity` (a ring that counts what it
+    drops), the last `max_requests` finished requests with their
+    counters, and the device-timed event pairs not yet resolved."""
+
+    def __init__(self, capacity: int = 65536, max_requests: int = 8192):
+        self.on = os.environ.get("PBRLAB_TRACE", "1") != "0"
+        self.spans = deque(maxlen=capacity)
+        self.requests = deque(maxlen=max_requests)
+        self.dropped = {"spans": 0, "requests": 0}
+        self.top = None  # the innermost open span
+        self.pending = []  # (counters, name, start event, end event, release)
+        self.lock = threading.Lock()  # over `pending`
+        self.ids = itertools.count(1)
+
+    def keep(self, ring, item, what):
+        if len(ring) == ring.maxlen:
+            self.dropped[what] += 1
+        ring.append(item)
+
+
+class _Span:
+    __slots__ = ("rec", "name", "attrs", "id", "parent", "request", "t0")
+
+    def __init__(self, rec, name, attrs):
+        self.rec, self.name, self.attrs = rec, name, attrs
+
+    def __enter__(self):
+        rec = self.rec
+        self.parent = rec.top
+        self.id = next(rec.ids)
+        self.request = (_Request(self.id, self.name, self.attrs)
+                        if self.parent is None else self.parent.request)
+        rec.top = self
+        self.t0 = _now_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = _now_ns()
+        rec = self.rec
+        rec.top = self.parent
+        parent = 0 if self.parent is None else self.parent.id
+        rec.keep(rec.spans, (self.request.id, self.id, parent, self.name,
+                             self.t0, t1 - self.t0, self.attrs), "spans")
+        if self.parent is None:
+            self.request.t0, self.request.t1 = self.t0, t1
+            rec.keep(rec.requests, self.request, "requests")
+        return False
+
+
+RECORDER = Recorder()
+_OFF = contextlib.nullcontext()
+
+
+def reset():
+    """A fresh recorder (PBRLAB_TRACE read again); what was kept goes."""
+    global RECORDER
+    RECORDER = Recorder()
+
+
+def span(name: str, **attrs):
+    """A context manager recording `name` over its block; the outermost
+    open span starts a request."""
+    if not RECORDER.on:
+        return _OFF
+    return _Span(RECORDER, name, attrs)
+
+
+def request(name: str, **attrs):
+    """`span(name)` when no span is open (the outermost entry point of a
+    request), else nothing."""
+    if not RECORDER.on or RECORDER.top is not None:
+        return _OFF
+    return _Span(RECORDER, name, attrs)
+
+
+def count(name: str, n=1):
+    """Add n to the current request's counter `name` (nothing when no
+    request is open)."""
+    rec = RECORDER
+    if rec.on and rec.top is not None:
+        counters = rec.top.request.counters
+        counters[name] = counters.get(name, 0) + n
+
+
+def device_interval(name: str, start, end, release=None):
+    """Add the device ms from CUDA event `start` to `end` (both recorded,
+    timing enabled) to the current request's counter `name` once `end`
+    has completed (`resolve`); `release(start, end)` then takes the
+    events back. With no request open they go back at once. A program
+    that never reads (no `resolve`) resolves what has completed every
+    `PENDING` pairs, so the pairs waiting stay few."""
+    rec = RECORDER
+    if rec.on and rec.top is not None:
+        with rec.lock:
+            rec.pending.append((rec.top.request.counters, name, start, end,
+                                release))
+        if len(rec.pending) >= PENDING:
+            resolve()
+    elif release is not None:
+        release(start, end)
+
+
+def resolve():
+    """Fold every event pair whose end has completed into its request's
+    counters. Never waits: a caller that has just waited on the stream
+    (the graph runner's read) resolves everything queued before."""
+    rec = RECORDER
+    with rec.lock:
+        left = []
+        for item in rec.pending:
+            counters, name, start, end, release = item
+            if not end.query():
+                left.append(item)
+                continue
+            counters[name] = counters.get(name, 0.0) + start.elapsed_time(end)
+            if release is not None:
+                release(start, end)
+        rec.pending = left
+
+
+GRAPH_SPANS = ("graphs.warmup", "graphs.capture", "graphs.instantiate",
+               "graphs.launch", "graphs.eager")
+
+
+def _phases(spans, counters):
+    """A request's per-phase table, from its graph runner spans and
+    counters: host s of warm-ups, captures, instantiations, launches and
+    eager runs, replays, captured nodes, device ms of replays and
+    warm-ups."""
+    out = defaultdict(lambda: {"warmup_s": 0.0, "capture_s": 0.0,
+                               "instantiate_s": 0.0, "launch_s": 0.0,
+                               "eager_s": 0.0, "replays": 0, "nodes": None,
+                               "device_ms": 0.0, "warmup_device_ms": 0.0})
+    for s in spans:
+        if s["name"] in GRAPH_SPANS:
+            st = out[s["attrs"]["phase"]]
+            key = s["name"].split(".")[1]
+            st[key + "_s"] += s["dur_ns"] / 1e9
+            st["replays"] += key == "launch"
+    for name, v in counters.items():
+        kind, _, phase = name.partition(".")
+        if kind in ("device_ms", "warmup_device_ms"):
+            out[phase][kind] += v
+        elif kind == "nodes":
+            out[phase]["nodes"] = v
+    return dict(out)
+
+
+def _record(req, spans):
+    return {"id": req.id, "name": req.name, "attrs": req.attrs,
+            "t0_ns": req.t0, "dur_ns": req.t1 - req.t0,
+            "counters": dict(req.counters),
+            "phases": _phases(spans, req.counters), "spans": spans}
+
+
+def records(since: int = 0):
+    """The finished requests with an id above `since`, oldest first, each
+    a dict: id, name, attrs, t0_ns (Unix ns), dur_ns, counters, phases
+    (`_phases`) and its spans still in the ring (id, parent (0 for the
+    request's own), name, t0_ns, dur_ns, attrs). Event pairs that have
+    completed are resolved first."""
+    resolve()
+    rec = RECORDER
+    by_request = defaultdict(list)
+    for rid, sid, parent, name, t0, dur, attrs in list(rec.spans):
+        if rid > since:
+            by_request[rid].append({"id": sid, "parent": parent,
+                                    "name": name, "t0_ns": t0, "dur_ns": dur,
+                                    "attrs": attrs})
+    return [_record(req, by_request.get(req.id, []))
+            for req in list(rec.requests) if req.id > since]
+
+
+def dropped() -> dict:
+    """Spans and requests the rings have dropped."""
+    return dict(RECORDER.dropped)
+
+
+_TRACE_TID = 0x70627200  # the merged spans' row
+
+
+def merge_spans(path: str, t0_ns: int, t1_ns: int):
+    """Write the recorder's spans that overlap [t0_ns, t1_ns] into the
+    Chrome trace at `path`, on the trace's own clock (its
+    `baseTimeNanoseconds`), on one row named pbrlab."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    events = doc.setdefault("traceEvents", [])
+    pid = os.getpid()
+    events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                   "tid": _TRACE_TID, "args": {"name": "pbrlab"}})
+    for rid, sid, parent, name, t0, dur, attrs in list(RECORDER.spans):
+        if t0 + dur < t0_ns or t0 > t1_ns:
+            continue
+        events.append({"ph": "X", "cat": "pbrlab", "name": name, "pid": pid,
+                       "tid": _TRACE_TID, "ts": (t0 - base) / 1e3,
+                       "dur": dur / 1e3,
+                       "args": {**attrs, "request": rid, "span": sid,
+                                "parent": parent}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """`torch.profiler.profile` over the block (CPU, and CUDA where a card
     is present), written to logdir/trace.json as a Chrome trace (open in
-    chrome://tracing or Perfetto). Yields the profiler."""
+    chrome://tracing or Perfetto) with the recorder's spans of the block
+    on a row of their own. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    t0 = _now_ns()
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    t1 = _now_ns()
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    merge_spans(path, t0, t1)

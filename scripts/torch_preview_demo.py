@@ -12,7 +12,8 @@ its CUDA graphs captured by the first passes; the edit writes the new
 material into the program's buffers and captures nothing new, and the
 script prints the capture count before and after it. Writes
 outdir/before.png and outdir/after.png (`io.image.encode_png`) and prints
-"ok" last.
+"ok" last, after the passes' walls (the recorder's `progressive.pass`
+requests).
 """
 import argparse
 import json
@@ -45,6 +46,7 @@ def main(argv=None):
     from pbrlab_tpu_torch.render.progressive import ProgressiveRenderer
     from pbrlab_tpu_torch.scene.demo import build_demo_scene
     from pbrlab_tpu_torch.scene.scene import scene_to_device
+    from pbrlab_tpu_torch.utils import profiling
 
     scene_np, builder = build_demo_scene(subdiv=args.subdiv)
     r = ProgressiveRenderer(scene_to_device(scene_np, args.device),
@@ -82,8 +84,10 @@ def main(argv=None):
         srv.stop()
 
     d = float(np.abs(before - after).max())
+    pass_seconds = [rec["dur_ns"] / 1e9 for rec in profiling.records()
+                    if rec["name"] == "progressive.pass"]
     print(f"{args.size}x{args.size} on {args.device}: pass times "
-          f"{[round(t, 4) for t in r.pass_times]} s; graphs captured "
+          f"{[round(t, 4) for t in pass_seconds]} s; graphs captured "
           f"{captured} before the edit, {_captures(r)} after; before/after "
           f"max pixel delta {d:.4f} ({args.outdir}/before.png, after.png)",
           file=sys.stderr)

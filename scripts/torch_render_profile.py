@@ -1,5 +1,5 @@
 """Time and profile renders of the PyTorch/CUDA port on a GPU: wall time,
-device busy time and idle share, and the device time by kernel.
+device busy time, and the device time by kernel.
 
     python scripts/torch_render_profile.py --path large --size 256 --spp 2
     python scripts/torch_render_profile.py --root build/parent \
@@ -15,15 +15,16 @@ to "dense" (dense_v2) or "dense3" (dense_v3)), or the scan path (scan:
 `render_scan` of the cornellbox, a compiled program of max_steps full
 steps a sample, kept across the reps so that they replay its graphs;
 its counts are per step, and the first render's wall, captures and
-nodes print apart); each render runs at
+nodes, from the recorder's `render` request, print apart); each render
+runs at
 max_steps=12, k_volume=3, seed 7. --root is the checkout whose `pbrlab_tpu_torch` and
 `chip_smoke.py` are imported (default: the one holding this script), so
 two commits can be compared on one card in one call by running them in
 turns (A, B, B, A). For each path the scene is rendered once at 32x32x1
 (builds the kernels, warms the allocator), then --reps times unprofiled
 (host clock around work that ends in a synchronize), then, unless
---no-profile, once under torch.profiler; the idle share is 1 - device
-busy / the median unprofiled wall. On the card `render_lanes_wavefront`
+--no-profile, once under torch.profiler (the device's idle share is the
+benchmark's, `portbench/metrics/device_idle_share.py`). On the card `render_lanes_wavefront`
 runs its loop as CUDA graphs captured in the call, so the device kernels
 per sub-iteration are the graphs' nodes run, and the host launches (the
 runtime calls that queue work: kernel and graph launches, copies and
@@ -97,7 +98,7 @@ def profile(path, run, size, spp, wall, iters, card):
     print(f"{path} {size}x{size}x{spp}: {iters} {unit}s; wall "
           f"{wall:.3f} s unprofiled, {prof_wall:.3f} s profiled; {count} "
           f"device kernels ({count / iters:.0f} per {unit}), device "
-          f"busy {busy:.3f} s, idle share {1 - busy / wall:.3f}; trace "
+          f"busy {busy:.3f} s; trace "
           f"kernels {own_s:.3f} s ({own_s / busy * 100:.1f}% of busy), of "
           f"which {'/'.join(ONE[path])} {one_s:.3f} s ({one_s / busy * 100:.1f}% of busy, "
           f"{one_n} launches) ({card})")
@@ -134,6 +135,7 @@ def main():
     from pbrlab_tpu_torch.scene.demo import build_demo_scene
     from pbrlab_tpu_torch.scene.instanced import build_instanced
     from pbrlab_tpu_torch.scene.scene import scene_from_numpy
+    from pbrlab_tpu_torch.utils import profiling
 
     print(f"port imported from {os.path.dirname(pbrlab_tpu_torch.__file__)}")
     card = subprocess.run(
@@ -172,14 +174,16 @@ def main():
             run(32, 1)
         else:  # the first render at the size warms and captures
             first, _ = run(args.size, args.spp)
-            prog, = kept["programs"].programs.values()
-            stats = prog.runner.stats
+            # older trees keep no records
+            rec = getattr(profiling, "last", lambda name: None)("render")
+            phases = rec["phases"] if rec else {}
             capture = sum(st["capture_s"] + st["instantiate_s"]
-                          for st in stats.values())
+                          for st in phases.values())
             print(f"{root} scan {args.size}x{args.size}x{args.spp} first "
                   f"render (warm-ups and captures): {first:.3f} s, captures "
-                  f"{capture:.3f} s, nodes {prog.runner.nodes()} ({card})",
-                  flush=True)
+                  f"{capture:.3f} s, nodes "
+                  f"{ {ph: st['nodes'] for ph, st in phases.items()} } "
+                  f"({card})", flush=True)
         walls = []
         for rep in range(args.reps):
             wall, iters = run(args.size, args.spp)

@@ -21,7 +21,8 @@ max_steps 6, seed 7). No JAX: the card runs the requires_cuda test with
     (A) then (B-win) when the read count of walkers fits the window, else
     (B-full); without it but with substeps, (A-head), (B-any) when a lane
     walks, (A-tail); without substeps (A); each trip ends with (F), and a
-    loop test read starts every trip. Window 1 overflows whenever more
+    loop test read (its low bit; the lanes counted so far above it) starts
+    every trip. Window 1 overflows whenever more
     than one lane walks, window n_lanes - 1 never does, window n_lanes is
     off.
 (d) The phase-split loop gives `render`'s bits and those of `render_scan`
@@ -35,8 +36,6 @@ max_steps 6, seed 7). No JAX: the card runs the requires_cuda test with
 (f) On the card: a graphed 32x32x2 SSS cornellbox render against the
     private eager loop, to the bit, with equal launch counts.
 """
-import contextlib
-
 import pytest
 import torch
 
@@ -45,6 +44,8 @@ from pbrlab_tpu_torch.render import graphs
 from pbrlab_tpu_torch.render import integrator as tint
 from pbrlab_tpu_torch.scene.demo import build_demo_scene
 from pbrlab_tpu_torch.scene.scene import build_fat_tables, scene_from_numpy
+from pbrlab_tpu_torch.utils import profiling
+from torch_fakes import FakeCuda, FakeGraph
 from torch_threads import one_torch_thread  # noqa: F401
 
 W = H = 16
@@ -181,7 +182,7 @@ def _jax_order(events, k_volume, window_ok, vol_window, flush_every):
     def read():
         return reads.pop(0)
 
-    while read():  # the loop test
+    while read() & 1:  # the loop test
         for _ in range(flush_every):
             if window_ok:
                 runs.append("A")
@@ -245,42 +246,6 @@ def test_window_branches_give_one_image(watched, name):
     assert torch.equal(watched[name][1], watched["sss"][1])
 
 
-class FakeGraph:
-    """A stand-in for torch.cuda.CUDAGraph: capture runs the phase (a
-    real capture records it), replay only counts."""
-    fail_replay = False
-
-    def __init__(self, keep_graph=False):
-        assert keep_graph
-        self.replays = 0
-        self.instantiated = False
-
-    def instantiate(self):
-        self.instantiated = True
-
-    def replay(self):
-        if FakeGraph.fail_replay:
-            raise RuntimeError("replay failed")
-        assert self.instantiated
-        self.replays += 1
-
-
-class FakeCuda:
-    CUDAGraph = FakeGraph
-
-    def __init__(self):
-        self.captures = []
-
-    def graph_pool_handle(self):
-        return ("pool",)
-
-    @contextlib.contextmanager
-    def graph(self, graph, pool):
-        assert pool == ("pool",)
-        self.captures.append(graph)
-        yield
-
-
 @pytest.fixture
 def counters():
     saved = {m: dict(c) for m, c in graphs.COUNTERS.items()}
@@ -317,8 +282,7 @@ def test_graph_runner_counts_the_eager_launches(counters):
     assert runner.graphs["F"][1] == {}
     assert graph_a.replays == 4 and runner.graphs["F"][0].replays == 1
     assert cuda.captures == [graph_a, runner.graphs["F"][0]]
-    assert runner.stats["A"]["replays"] == 4
-    assert runner.stats["F"]["replays"] == 1
+    assert runner.warm == {"A", "F"}
     # five runs of A count five launches, as five eager runs do
     assert counters["v4"]["dual"] == 5 and counters["v5"]["v5"] == 5
     assert sum(sum(c.values()) for c in counters.values()) == 10
@@ -360,6 +324,7 @@ def test_graphed_render_equals_eager_loop():
                 c[k] = 0
         runner = graphs.GraphRunner() if kind == "graphs" else \
             graphs.EagerRunner()
+        mark = max([r["id"] for r in profiling.records()], default=0)
         fb, it = tint._wavefront(runner, scene, 32, 32, 2, seed=SEED,
                                  max_steps=12, k_volume=3)
         torch.cuda.synchronize()
@@ -367,7 +332,9 @@ def test_graphed_render_equals_eager_loop():
                                    graphs.COUNTERS.items()
                                    for k, v in c.items()}
         if kind == "graphs":
-            assert any(s["replays"] for s in runner.stats.values())
+            rec = profiling.records(since=mark)[-1]  # the render request
+            assert rec["name"] == "render"
+            assert any(st["replays"] for st in rec["phases"].values())
     assert out["graphs"][1] == out["eager"][1]
     assert torch.equal(out["graphs"][0], out["eager"][0])
     assert out["graphs"][2] == out["eager"][2]

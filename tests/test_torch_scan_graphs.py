@@ -48,6 +48,7 @@ from pbrlab_tpu_torch.render import integrator as tint
 from pbrlab_tpu_torch.render.progressive import ProgressiveRenderer
 from pbrlab_tpu_torch.scene.demo import build_demo_scene
 from pbrlab_tpu_torch.scene.scene import build_fat_tables, scene_from_numpy
+from pbrlab_tpu_torch.utils import profiling
 from torch_scenes import textured_scene
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -395,8 +396,26 @@ class ReplayGraph:
         self.replays += 1
 
 
+class InstantEvent:
+    """torch.cuda.Event's stand-in: complete once recorded, no time
+    between two (the graph runner times its replays with pairs)."""
+
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self, stream=None):
+        pass
+
+    def query(self):
+        return True
+
+    def elapsed_time(self, end):
+        return 0.0
+
+
 class ReplayCuda:
     CUDAGraph = ReplayGraph
+    Event = InstantEvent
 
     def __init__(self):
         self.captures = []
@@ -440,32 +459,36 @@ def _captures(cuda):
 
 
 @pytest.mark.parametrize("name", ["lambert", "sss"])
-def test_replayed_scan_gives_eager_bits(scenes, watched, replaying, name):
+def test_replayed_scan_gives_eager_bits(scenes, watched, replaying, name,
+                                       monkeypatch):
     """render_scan through replayed captures: the eager loop's image to
     the bit (sample 0's phases captured with sample 1's ids would render
     sample 1 again), each phase captured once across the samples and
     replayed after."""
     cuda, programs = replaying
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    profiling.RECORDER.on = True
     img = _run(scenes[name], RUNS[name][1], 2, False, programs)
     assert torch.equal(img, watched[name][1])
     prog, = programs.programs.values()
-    stats = prog.runner.stats
-    assert _captures(cuda) == len(prog.runner.graphs) == len(stats)
+    phases = profiling.records()[-1]["phases"]  # the render request's
+    warm = prog.runner.warm
+    assert _captures(cuda) == len(prog.runner.graphs) == len(warm)
     # a warm-up, then a capture and its replay, then replays
-    assert stats["I"]["replays"] == SPP - 1
-    assert stats["S"]["replays"] == SPP * MAX_STEPS - 1
+    assert phases["I"]["replays"] == SPP - 1
+    assert phases["S"]["replays"] == SPP * MAX_STEPS - 1
     # a second call captures nothing new
     img2 = tint.render_scan(scenes[name], W, H, SPP, seed=SEED,
                             max_steps=MAX_STEPS, k_volume=RUNS[name][1],
                             programs=programs)
-    assert torch.equal(img2, img) and _captures(cuda) == len(stats)
+    assert torch.equal(img2, img) and _captures(cuda) == len(warm)
     # another seed rides in the keys buffer: the eager image of seed 8
     other = tint.render_scan(scenes[name], W, H, 2, seed=SEED + 1,
                              max_steps=MAX_STEPS, k_volume=RUNS[name][1],
                              programs=programs)
     want = tint.render_scan(scenes[name], W, H, 2, seed=SEED + 1,
                             max_steps=MAX_STEPS, k_volume=RUNS[name][1])
-    assert torch.equal(other, want) and _captures(cuda) == len(stats)
+    assert torch.equal(other, want) and _captures(cuda) == len(warm)
 
 
 def test_replayed_progressive_passes_and_edit(replaying):
@@ -677,6 +700,7 @@ def test_graphed_scan_and_gradient_equal_eager():
     for kind in ("graphs", "eager"):
         programs = graphs.Programs(runner=None if kind == "graphs"
                                    else graphs.EagerRunner)
+        mark = max([r["id"] for r in profiling.records()], default=0)
         for c in graphs.COUNTERS.values():
             for k in c:
                 c[k] = 0
@@ -692,9 +716,10 @@ def test_graphed_scan_and_gradient_equal_eager():
                                     allow_unused=True)
         out[kind] = (img.cpu(), launches, g_img.detach().cpu(),
                      loss.detach().cpu(), dict(zip(leaves, grads)))
-        if kind == "graphs":
-            prog = next(iter(programs.programs.values()))
-            assert any(st["replays"] for st in prog.runner.stats.values())
+        if kind == "graphs":  # the render_scan request replayed
+            phases = next(r for r in profiling.records(since=mark)
+                          if r["name"] == "render")["phases"]
+            assert any(st["replays"] for st in phases.values())
     g, e = out["graphs"], out["eager"]
     assert torch.equal(g[0], e[0]) and g[1] == e[1] and g[0].sum() > 0
     assert torch.equal(g[2], e[2]) and torch.equal(g[3], e[3])

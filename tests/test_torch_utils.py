@@ -1,6 +1,7 @@
 """The port's profiling and logging utilities, case for case as
-tests/test_utils.py (occupancy monotone, occupancy positive, RaysMeter,
-the logger's JSON fields), plus `ray_units` against the JAX package's on
+tests/test_utils.py (occupancy monotone, occupancy positive, the
+logger's JSON fields; its RaysMeter is not ported: the port's recorder,
+tests/test_torch_tracing.py, counts a render's live lanes), plus `ray_units` against the JAX package's on
 the lambert scene (subdiv 2, 16x16, 6 steps; measured equal on every
 step, band 1e-6: JAX traces its CPU BVH walk, the port dense_v4's twin,
 which can move a tied or grazing lane), the profiler trace, and
@@ -61,18 +62,6 @@ def test_measure_occupancy_positive():
     s3 = measure_occupancy(scene_np, max_steps=4, probe=16, k_volume=2,
                            device="cpu")
     assert s3 >= s  # substep rays only add
-
-
-def test_rays_meter():
-    from pbrlab_tpu_torch.utils.profiling import RaysMeter
-
-    m = RaysMeter(n_pixels=100, occupancy_steps=3.0)
-    with m.lap(spp=2):
-        pass
-    assert m.rays == 100 * 2 * 3.0 * 2.0
-    assert m.seconds > 0
-    rep = m.report()
-    assert rep["laps"] == 1 and rep["mrays_per_s"] > 0
 
 
 def test_logger_json_fields():
