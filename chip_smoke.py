@@ -39,7 +39,9 @@ N_PLAIN_TUFT rays; the legacy v1 kernel, which no render path reaches,
 at the file path's shapes; all ten kernels walk per ray and are
 bit-equal to their twins, whose counts of each lane's tests print beside
 the need, and each dual's closest answer is bit-equal to its single
-kernel's; dense_v4 and dense_v3 also timed as whole wrapper calls);
+kernel's; dense_v4 and dense_v3 also timed as whole wrapper calls; the
+step's kernels `step_pre` and `step_shade` at N_DUAL lanes against the
+torch chain, bit-equal, `step_phase`);
 phase 4 checks small renders on the card against the same renders on the
 CPU (the instanced one on a 16-instance cut of its scene,
 PARITY_INSTANCED; the textured file scene through both legacy backends);
@@ -81,7 +83,11 @@ third, and the gradient passes of the cornellbox and the hair scene at
 SCAN_GRAD_SIZE^2 x 1, graphed (under sync
 debug mode "error") and through the same phases op by op: bit-equal
 images, passes and loss, equal launches, gradients in the band, no
-capture made by the edit.
+capture made by the edit; then the step's kernels (`fused_phase`): each
+phase-5 path whose step the dispatch rule sends to `ops/step.py`'s two
+kernels, rendered at FUSED_SIZE^2 x FUSED_SPP (the main path's N_DUAL
+lanes and N_SINGLE window) through the graphed loop and `render_scan`
+with the kernels and with the torch chain forced, bit-equal.
 Exits non-zero, printing no result, on any failure or without a
 CUDA card. The last lines are the kernels' JSON record, the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -136,6 +142,9 @@ DIST_SIZE, DIST_SPP = 128, 2  # two ranks on the card, gloo
 BVH_PATHS = ("cornellbox", "hair")  # phase 8: these at tri_backend="bvh"
 BVH_SIZE, BVH_SPP = 256, 8  # phase 8's renders
 GRAPH_SIZE, GRAPH_SPP = 128, 2  # phase 9: graphed and eager renders
+# phase 9: the step's kernels against the chain, at the main path's shapes
+# (N_DUAL lanes, the N_SINGLE window)
+FUSED_SIZE, FUSED_SPP = 256, 2
 SCAN_GRAD_SIZE = 64  # phase 9: graphed and eager gradient passes
 # phase 7: the hair scene's gradient pass, card vs CPU, and the columns of
 # the hair material it differentiates besides the train step's leaves
@@ -144,6 +153,7 @@ HAIR_GRAD_KEYS = ("melanin", "hair_roughness", "azimuthal_roughness")
 REPRO_SIZE = 64  # phase 7: the C12 reproducibility passes
 N_DUAL = 65536  # default n_lanes: every full step traces this many lanes
 N_SINGLE = 24576  # default volume window (3/8 of the lanes): substeps 2-3
+COLS = 39  # the packed path state (integrator.pack_state), float32
 RTOL = 1e-5  # kernel vs plain: same float ops in the same order, no FMA
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -387,6 +397,19 @@ def cuda_ms(fn, reps=20, warmup=2):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def graph_ms(fn, reps=20):
+    """Device ms of one fn() call: `reps` calls captured as one CUDA graph
+    (as the program runs them, free of the host's launch cost), the
+    median replay over reps."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=5, warmup=1) / reps
 
 
 def bound(n_bytes, ops):
@@ -1259,7 +1282,7 @@ def bvh_phase(counters, scenes_np, scenes, rays, card):
             want += ["curve_closest", "curve_any_hit"]
         if not all(bvh_walk.LAUNCHES[k] for k in want):
             raise AssertionError(f"{name} bvh path missed a walk: {counts}")
-        if any(not k.startswith("bvh.") for k in counts):
+        if any(not k.startswith(("bvh.", "step.")) for k in counts):
             raise AssertionError(f"{name}: a trace left the bvh backend: "
                                  f"{counts}")
     return rec, launches
@@ -1460,6 +1483,168 @@ def scan_graph_phase(scenes, file_scene, names, card):
         grads_agree(f"graphs grad pass {name} {SCAN_GRAD_SIZE}x"
                     f"{SCAN_GRAD_SIZE}x1 graphed vs eager", g["grads"],
                     e["grads"], GRAD_BAND, card)
+
+
+def step_phase(scenes, card):
+    """Phase 3, the step's kernels (`ops/step.py`) at the main path's
+    shapes: the cornellbox's and the xl scene's N_DUAL lanes after two
+    sub-iterations (a full step and k_volume substeps each, then the
+    compaction: volume, dead and pending-NEE lanes), a full step, and on
+    the cornellbox a later windowed substep of the leading N_SINGLE rows.
+    Each step's new rows must be the chain's to the bit. Times `step_pre`
+    and `step_shade` as CUDA graphs (`graph_ms`, the kernels' device time
+    without the host's launch cost, which is larger) against the chain's
+    step less its trace launch (their plain version together), and their
+    bytes bound:
+    the rows read once and the rays written (`step_pre`); the rows and
+    the hit read, the new rows written, the fat tables once, the face
+    table's rows at most one a lane (`step_shade`). Returns the cornellbox full step's records and each
+    case's line by case."""
+    from pbrlab_tpu_torch.ops import step
+    from pbrlab_tpu_torch.ops.intersect import trace_scene, trace_scene_dual
+    from pbrlab_tpu_torch.render import integrator
+    from pbrlab_tpu_torch.scene.scene import build_fat_tables
+
+    out, lines = {}, {}
+    cases = (("cornellbox", "full step", N_DUAL), ("cornellbox",
+             "windowed later substep", N_SINGLE), ("xl", "full step", N_DUAL))
+    with torch.no_grad():
+        for name, what, n in cases:
+            scene = build_fat_tables(scenes[name])
+            rows = integrator.pack_state(integrator.init_state(
+                scene, 256, 256, 0, SEED))
+            for _ in range(2):
+                rows = integrator.wavefront_step(scene, rows)
+                for i in range(SETTINGS["k_volume"]):
+                    rows = integrator.wavefront_step(
+                        scene, rows, freeze_surface=True,
+                        resolve_pending=i == 0)
+            rows = integrator.compact_packed(rows, scene)[:n]
+            freeze = n != N_DUAL
+            kw = dict(freeze_surface=True, windowed=True) if freeze else {}
+            resolving = not freeze
+
+            def chain():
+                return integrator.pack_state(
+                    integrator._wavefront_step_chain(
+                        scene, integrator.unpack_state(rows), **kw))
+
+            fused = integrator.wavefront_step(scene, rows, **kw)
+            if not torch.equal(fused.view(torch.int32),
+                               chain().view(torch.int32)):
+                raise AssertionError(f"step kernels {name} {what}: the new "
+                                     "rows differ from the chain's")
+            rays, shadow = step.pre(rows, freeze, resolving)
+            if resolving:
+                def trace():
+                    return trace_scene_dual(scene, *rays, *shadow)
+                hit, occ = trace()
+            else:
+                def trace():
+                    return trace_scene(scene, *rays)
+                hit, occ = trace(), None
+            ms_pre = graph_ms(lambda: step.pre(rows, freeze, resolving))
+            ms_shade = graph_ms(lambda: step.shade(scene, rows, hit, occ,
+                                                   freeze, resolving))
+            plain = graph_ms(chain, reps=2) - graph_ms(trace)
+            face = scene["face_fat"]  # once, or a row a lane if fewer
+            tables = min(nbytes(face), n * nbytes(face[0])) + nbytes(
+                scene["mat_fat"], scene["light_fat"], scene["light_cdf"])
+            b_pre = bound(n * 4 * (COLS + (13 if resolving else 8)), 0)
+            b_shade = bound(n * (8 * COLS + 16 + resolving) + tables, 0)
+            walkers = int(((rows[:, 15] > 0.5) & (rows[:, 17] > 0.5)).sum())
+            lines[(name, what)] = (
+                f"{name} {what}, {n} lanes ({walkers} walkers): step_pre "
+                f"{ms_pre:.4f} ms (bound {b_pre[0]:.4f}), step_shade "
+                f"{ms_shade:.4f} ms (bound {b_shade[0]:.4f}), the chain "
+                f"less its trace {plain:.4f} ms")
+            print(f"step kernels {lines[(name, what)]}; bit-equal ({card})")
+            if (name, what) == cases[0][:2]:
+                for key, ms, (b_ms, b_by) in (("step_pre", ms_pre, b_pre),
+                                              ("step_shade", ms_shade,
+                                               b_shade)):
+                    out[key] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                    bound_by=b_by, max_abs_err=0.0)
+    out["step_lines"] = lines
+    return out
+
+
+def fused_phase(scenes, card):
+    """Phase 9, the step's kernels (`ops/step.py`) against the torch
+    chain at the main path's shapes: every phase-5 path whose step the
+    dispatch rule (`integrator.fused_step`) sends to the kernels renders
+    at FUSED_SIZE^2 x FUSED_SPP through the graphed loop, whose request
+    must show N_DUAL lanes and the volume window's substeps (N_SINGLE
+    rows), and through `render_scan` (N_DUAL lanes), once as the program
+    runs it and once with the chain forced (the rule swapped, here only,
+    for one that always says no). The images must be bit-equal, the
+    kernels' renders must count fused steps alone and the chain's as many
+    chain steps. Prints both walls and the counts. Returns the paths
+    rendered."""
+    from pbrlab_tpu_torch.ops import step
+    from pbrlab_tpu_torch.render import graphs, integrator
+    from pbrlab_tpu_torch.scene.scene import build_fat_tables
+    from pbrlab_tpu_torch.utils import profiling
+
+    rule = integrator.fused_step
+    size, spp = FUSED_SIZE, FUSED_SPP
+    done = []
+    for name in PATHS:
+        scene = scenes[name]
+        with torch.no_grad():
+            tables = build_fat_tables(scene)
+            if not rule(tables, tables["mat_fat"].device):
+                continue
+        rec = {}
+        for kind in ("kernels", "chain"):
+            if kind == "chain":
+                integrator.fused_step = lambda scene, device: False
+            try:
+                for k in step.LAUNCHES:
+                    step.LAUNCHES[k] = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mark = newest_request()
+                fb, _ = integrator._wavefront(checked_runner()(), scene, size,
+                                              size, spp, seed=SEED,
+                                              **SETTINGS)
+                loop = [r for r in profiling.records(mark)
+                        if r["name"] == "render"]
+                img = integrator.render_scan(
+                    scene, size, size, spp, seed=SEED,
+                    programs=graphs.Programs(runner=checked_runner()),
+                    **SETTINGS)
+                torch.cuda.synchronize()
+                rec[kind] = (time.perf_counter() - t0, fb.cpu(), img.cpu(),
+                             dict(step.LAUNCHES))
+            finally:
+                integrator.fused_step = rule
+            if not loop:
+                raise AssertionError("fused: the loop's render request is "
+                                     "missing (PBRLAB_TRACE=0?)")
+            c = loop[0]["counters"]
+            lanes = c["lane_slots"] // max(c["subiters"], 1)
+            window = loop[0]["phases"].get("B-win", {}).get("replays", 0)
+            if lanes != N_DUAL or not window:
+                raise AssertionError(f"fused {name} {kind}: {lanes} lanes, "
+                                     f"{window} windowed substep replays; "
+                                     f"the main path has {N_DUAL} lanes and "
+                                     f"its {N_SINGLE}-row window")
+        k, c = rec["kernels"], rec["chain"]
+        same = torch.equal(k[1], c[1]) and torch.equal(k[2], c[2])
+        print(f"fused {name} {size}x{size}x{spp} (loop + render_scan, "
+              f"{N_DUAL} lanes, window {N_SINGLE}): bit-equal {same}; "
+              f"kernels {k[0]:.3f} s, chain {c[0]:.3f} s; steps {k[3]} / "
+              f"{c[3]} ({card})")
+        if not (same and k[1].sum() > 0 and k[3]["chain"] == 0
+                and c[3]["fused"] == 0 and k[3]["fused"] == c[3]["chain"]
+                > 0 and k[3]["pre"] == k[3]["fused"]):
+            raise AssertionError(f"fused {name}: the kernels' renders "
+                                 "differ from the chain's")
+        done.append(name)
+    if not done:
+        raise AssertionError("no path took the step's kernels")
+    return done
 
 
 def render_parity(name, scene_np, scene, fn=None, **kw):
@@ -1931,10 +2116,25 @@ def training_phase(counters, scene_np, scene, card):
     ratio = graphed["peak"] / tape["peak"]
     same = (torch.equal(graphed["img"], tape["img"])
             and torch.equal(graphed["loss"], tape["loss"]))
+    # the trace kernels launch alike; the steps differ by design: the
+    # program's forward takes the step's kernels (no grad), its backward
+    # and the whole tape the chain, the tape's recompute included
+    def traces(counts):
+        return {k: v for k, v in counts.items() if not k.startswith("step.")}
+
+    n = graphed["fwd_counts"]["step.fused"]
+    steps_ok = (n > 0 and graphed["fwd_counts"]["step.chain"] == 0
+                and graphed["counts"]["step.chain"] == n
+                and graphed["counts"]["step.fused"] == n
+                and tape["counts"]["step.fused"] == 0
+                and tape["counts"]["step.chain"] == 2 * n)
+    traces_equal = traces(graphed["counts"]) == traces(tape["counts"])
     print(f"grad pass graphed vs eager: image and loss bit-equal {same}, "
-          f"launches equal {graphed['counts'] == tape['counts']}, peak "
-          f"allocated {ratio:.3f}x ({card})")
-    if not same or graphed["counts"] != tape["counts"] or ratio > 1.5:
+          f"trace launches equal {traces_equal}, steps fused / chain "
+          f"{n} / {graphed['counts']['step.chain']} against the tape's "
+          f"0 / {tape['counts']['step.chain']}, peak allocated "
+          f"{ratio:.3f}x ({card})")
+    if not (same and traces_equal and steps_ok) or ratio > 1.5:
         raise AssertionError("the graphed gradient pass differs from the "
                              "eager one or holds over 1.5x its memory")
     grads_agree("grad pass graphed vs eager gradients", grads,
@@ -2237,6 +2437,7 @@ def graphs_only():
     t0 = time.perf_counter()
     graph_phase(scenes, file_scene, card)
     scan_graph_phase(scenes, file_scene, names, card)
+    fused_phase(scenes, card)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     print(card)
     return 0
@@ -2289,6 +2490,7 @@ def main():
     rec.update(legacy_phase({"v1": dense, "v2": dense_v2, "v3": dense_v3},
                             file_scene, path_rays(file_scene, dev, rng),
                             card))
+    rec.update(step_phase(scenes, card))
 
     # phase 4: render parity, card (kernels) vs CPU (plain versions)
     render_parity("cornellbox", scenes_np["cornellbox"], scenes["cornellbox"],
@@ -2386,6 +2588,7 @@ def main():
     t0 = time.perf_counter()
     graph_phase(scenes, file_scene, card)
     scan_graph_phase(scenes, file_scene, names, card)
+    fused_phase(scenes, card)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases took {time.perf_counter() - t_start:.1f} s")
     # v1 is on no render path, in JAX as here: its row carries the launches
@@ -2442,6 +2645,20 @@ def main():
               "pbrlab_tpu/ops/curves.py:108",
               bh["curve_closest"] + bh["curve_any_hit"],
               bvh_rec["curve_bvh"])]
+    # the step's kernels: phase 5's paths that the rule sends to them step
+    # by them alone, the others by the chain alone
+    for name, c in all_counts.items():
+        if c["step.pre"] != c["step.fused"] or not (
+                (c["step.fused"] > 0) ^ (c["step.chain"] > 0)):
+            raise AssertionError(f"{name}: a render mixed the step's "
+                                 f"kernels and the chain: {c}")
+    steps = {k: sum(c[f"step.{k}"] for c in all_counts.values())
+             for k in ("pre", "fused", "chain")}
+    step_src = "pbrlab_tpu_torch/csrc/step.cu"
+    step_rep = "pbrlab_tpu/render/integrator.py:462"
+    rows += [("step_pre", step_src, step_rep, steps["pre"], rec["step_pre"]),
+             ("step_shade", step_src, step_rep, steps["fused"],
+              rec["step_shade"])]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2485,6 +2702,17 @@ def main():
         f"launches: phase 8's hair render at tri_backend=\"bvh\": "
         f"{bh['curve_closest']} closest + {bh['curve_any_hit']} any-hit; an "
         f"XLA while loop in the JAX package, not Pallas")
+    fused_paths = {name: c["step.fused"] for name, c in all_counts.items()
+                   if c["step.fused"]}
+    lines = rec["step_lines"]
+    for name in ("step_pre", "step_shade"):
+        row[name]["note"] = (
+            f"launches: phase 5's renders, one a fused step: "
+            f"{fused_paths}; the chain stepped the others ({steps['chain']} "
+            f"steps: hair, instanced, file); ms: the cornellbox's full step "
+            f"at {N_DUAL} lanes; plain_ms: the chain's step less its trace "
+            f"launch, the plain version of both kernels together; "
+            + "; ".join(lines.values()))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

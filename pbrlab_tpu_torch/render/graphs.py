@@ -55,7 +55,11 @@ Launch counts: the kernel wrappers add one to their module's `LAUNCHES`
 where they launch, which under capture records and does not launch. A
 capture therefore keeps the counts it added as the graph's own and takes
 them back; every replay adds them again. A graphed render counts the
-launches of its eager twin.
+launches of its eager twin. The runners also count a phase's wavefront
+steps into the open request, those that ran as `ops.step`'s kernels
+(`launches.step.fused`) and as the torch chain (`launches.step.chain`):
+a warm-up's and an eager run's as they happen, a replay's from its
+capture.
 """
 from __future__ import annotations
 
@@ -64,18 +68,36 @@ import ctypes
 import torch
 
 from ..ops import (bvh_walk, dense, dense_curve, dense_v2, dense_v3,
-                   dense_v4, dense_v5, dense_v5i)
+                   dense_v4, dense_v5, dense_v5i, step)
 from ..utils import profiling
 
-# every kernel wrapper's launch counter, by module
+# every kernel wrapper's launch counter, by module (`step`: the wavefront
+# step's, fused or chain)
 COUNTERS = {"v4": dense_v4.LAUNCHES, "v5": dense_v5.LAUNCHES,
             "curve": dense_curve.LAUNCHES, "v5i": dense_v5i.LAUNCHES,
             "v1": dense.LAUNCHES, "v2": dense_v2.LAUNCHES,
-            "v3": dense_v3.LAUNCHES, "bvh": bvh_walk.LAUNCHES}
+            "v3": dense_v3.LAUNCHES, "bvh": bvh_walk.LAUNCHES,
+            "step": step.LAUNCHES}
 
 
 def _counts():
     return {(m, k): v for m, c in COUNTERS.items() for k, v in c.items()}
+
+
+_STEPS = ("fused", "chain")  # the step counts a request carries
+
+
+def _run_counted(phase):
+    """Run a phase op by op, its fused and chain steps counted into the
+    open request (`utils.profiling`)."""
+    if not profiling.RECORDER.on:
+        phase()
+        return
+    before = [step.LAUNCHES[k] for k in _STEPS]
+    phase()
+    for k, n in zip(_STEPS, before):
+        if step.LAUNCHES[k] != n:
+            profiling.count("launches.step." + k, step.LAUNCHES[k] - n)
 
 
 class Programs:
@@ -120,7 +142,7 @@ class EagerRunner:
 
     def run(self, name, phase):
         with profiling.span("graphs.eager", phase=name):
-            phase()
+            _run_counted(phase)
 
     def read(self, probe) -> int:
         with profiling.span("graphs.read"):
@@ -146,7 +168,7 @@ class GraphRunner:
     def run(self, name, phase):
         if name not in self.warm:
             with profiling.span("graphs.warmup", phase=name):
-                self._timed("warmup_device_ms." + name, phase)
+                self._timed("warmup_device_ms." + name, _run_counted, phase)
             self.warm.add(name)
             return
         if name not in self.graphs:
@@ -156,6 +178,8 @@ class GraphRunner:
         self._timed("device_ms." + name, self._launch, graph, name)
         for (m, k), n in launches.items():
             COUNTERS[m][k] += n
+            if m == "step" and k in _STEPS:
+                profiling.count("launches.step." + k, n)
 
     @staticmethod
     def _launch(graph, name):

@@ -40,6 +40,14 @@ wavefront's, so `render_scan` and `render` give the same image: to the
 bit on the CPU, and on CUDA but for denormal sums, which the
 framebuffer's atomic adds (`index_add_`) flush to zero.
 
+On a CUDA device with grad mode off, on a baked scene with no texture
+atlas and no hair (`fused_step`), a step runs as two CUDA kernels
+around its trace launch (`ops/step.py`), one thread a lane, in place of
+the ~3,600 kernels of its torch chain, with the chain's bits; the loops
+step their packed rows. The chain (`_wavefront_step_chain`) is the
+kernels' plain twin, the autograd path (the gradient pass's per-depth
+recompute) and every other case's.
+
 Hair: a lane whose closest hit is a curve with a hair material shades in
 the hair frame (tangent, ribbon offset h) with the Principled Hair BSDF
 (`shading/hair.py`): NEE without the hemisphere test, 4 closure draws, no
@@ -76,6 +84,7 @@ from ..core.math import (EPS, F32_EPS, INF, gather_rows, saturate,
 from ..core.onb import branchless_onb, to_global, to_local
 from ..core.sampling import (cosine_sample_hemisphere, power_heuristic_weight,
                              uniform_sample_sphere)
+from ..ops import step as step_kernels
 from ..ops.dense_v4 import slab_interval
 from ..ops.intersect import (has_curves, occluded_scene, sparse_backend,
                              trace_scene, trace_scene_dual)
@@ -314,10 +323,27 @@ def _nee(scene, pos, geom_normal, omega_out_local, ex, ey, ez,
     return contrib, wl, torch.where(candidate, shadow_max, -1.0)
 
 
-def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
+def fused_step(scene, device) -> bool:
+    """Whether `wavefront_step` runs as the two kernels of `ops.step` for
+    `scene` on `device`: a CUDA device, grad mode off, and a baked scene
+    (no `iface_fat`) with no texture atlas (`texture_quad`) and no hair
+    (`has_curves`). Everything else takes the torch chain, which is also
+    the kernels' plain twin and the autograd path. The rule reads only
+    what it can observe; it has no switch."""
+    return (torch.device(device).type == "cuda"
+            and not torch.is_grad_enabled() and "iface_fat" not in scene
+            and "texture_quad" not in scene and not has_curves(scene))
+
+
+def wavefront_step(scene, rows: torch.Tensor, freeze_surface: bool = False,
                    resolve_pending: bool = False, windowed: bool = False,
-                   tri_backend: str | None = None) -> PathState:
-    """Advance every lane by one trace.
+                   tri_backend: str | None = None) -> torch.Tensor:
+    """Advance every lane by one trace: the packed state rows ([n, >= 39],
+    `pack_state`'s columns first) -> the new rows [n, 39].
+
+    Where `fused_step` holds, the step runs as two kernels around its
+    trace launch (`ops.step`), with the torch chain's bits; else as the
+    torch chain (`_wavefront_step_chain`, on the rows' PathState).
 
     freeze_surface=True runs a volume-only substep: surface-mode lanes do
     not trace, shade or draw, while volume-mode lanes advance one
@@ -336,8 +362,49 @@ def wavefront_step(scene, state: PathState, freeze_surface: bool = False,
     hit (the legacy kernels' group decisions aside: a grazing ray may hit
     in one cluster walk and miss in another).
     """
+    args = (freeze_surface, resolve_pending, windowed, tri_backend)
+    if fused_step(scene, rows.device):
+        return _fused_step(scene, rows, *args)
+    return pack_state(_wavefront_step_chain(scene, unpack_state(rows), *args))
+
+
+def _fused_step(scene, rows, freeze_surface, resolve_pending, windowed,
+                tri_backend):
+    """`wavefront_step` on packed rows as `ops.step`'s two kernels around
+    the chain's own trace launch -> the new rows [n, 39]."""
+    backend = tri_backend
+    if freeze_surface and not windowed:
+        backend = sparse_backend(scene, tri_backend) or backend
+    resolving = not freeze_surface or resolve_pending
+    rays, shadow = step_kernels.pre(rows, freeze_surface, resolving)
+    if resolving:
+        hit, occ = trace_scene_dual(scene, *rays, *shadow, backend=backend)
+    else:
+        hit, occ = trace_scene(scene, *rays, backend=backend), None
+    return step_kernels.shade(scene, rows, hit, occ, freeze_surface,
+                              resolving)
+
+
+def _volume_substeps(step, scene, state, k_volume, **kw):
+    """The k_volume volume-only substeps of `state` through `step`:
+    `wavefront_step` on packed rows, `_wavefront_step_chain` on a
+    PathState."""
+    for i in range(k_volume):
+        state = step(scene, state, freeze_surface=True,
+                     resolve_pending=(i == 0), **kw)
+    return state
+
+
+def _wavefront_step_chain(scene, state: PathState, freeze_surface=False,
+                          resolve_pending=False, windowed=False,
+                          tri_backend=None) -> PathState:
+    """`wavefront_step` as a chain of torch operations on a PathState: the
+    kernels' twin and the autograd path. A chain step on a CUDA device
+    counts one `chain` in `ops.step.LAUNCHES`."""
     n = state.org.shape[0]
     dev = state.org.device
+    if dev.type == "cuda":
+        step_kernels.LAUNCHES["chain"] += 1
     surface_mode = state.mode == MODE_SURFACE
     volume_mode = state.mode == MODE_VOLUME
 
@@ -707,13 +774,11 @@ def _render_lanes_tape(scene, width, height, sample_id, seed, max_steps,
     n = state.org.shape[0]
 
     def body(state, depth):
-        state = wavefront_step(scene, state, tri_backend=tri_backend)
+        state = _wavefront_step_chain(scene, state, tri_backend=tri_backend)
         if k_volume and bool(  # host sync: skip when no lane walks
                 (state.alive & (state.mode == MODE_VOLUME)).any()):
-            for i in range(k_volume):
-                state = wavefront_step(scene, state, freeze_surface=True,
-                                       resolve_pending=(i == 0),
-                                       tri_backend=tri_backend)
+            state = _volume_substeps(_wavefront_step_chain, scene, state,
+                                     k_volume, tri_backend=tri_backend)
         if sort_every and (depth + 1) % sort_every == 0:
             state = compact_state(state, scene)
         return state
@@ -906,16 +971,17 @@ class _LanesProgram:
     def step(self):
         """(S) one full step; with substeps, whether a lane walks in the
         probe."""
-        st = wavefront_step(self.scene, unpack_state(self.packed),
-                            tri_backend=self.tri_backend)
-        self.packed.copy_(pack_state(st))
+        p = wavefront_step(self.scene, self.packed,
+                           tri_backend=self.tri_backend)
+        self.packed.copy_(p)
         if self.k_volume:
-            self.probe.copy_((st.alive & (st.mode == MODE_VOLUME)).any())
+            self.probe.copy_(((p[:, 15] > 0.5) & (p[:, 17] > 0.5)).any())
 
     def substeps(self):
         """(V) the k_volume volume-only substeps."""
-        self.packed.copy_(pack_state(self._substeps(
-            self.scene, unpack_state(self.packed))))
+        self.packed.copy_(_volume_substeps(
+            wavefront_step, self.scene, self.packed, self.k_volume,
+            tri_backend=self.tri_backend))
 
     def compact(self):
         """(C) the compaction."""
@@ -953,10 +1019,12 @@ class _LanesProgram:
             tables = {k: self.scene[k].detach().requires_grad_()
                       for k in self.tables}
             scene = {**self.scene, **tables}
-            st = wavefront_step(scene, unpack_state(x),
-                                tri_backend=self.tri_backend)
+            st = _wavefront_step_chain(scene, unpack_state(x),
+                                       tri_backend=self.tri_backend)
             if walked:
-                st = self._substeps(scene, st)
+                st = _volume_substeps(_wavefront_step_chain, scene, st,
+                                      self.k_volume,
+                                      tri_backend=self.tri_backend)
             p = pack_state(st)
             if compacts:
                 p = compact_packed(p, scene)
@@ -967,13 +1035,6 @@ class _LanesProgram:
         self.g.copy_(got[0])
         for k, gk in zip(tables, got[1:]):
             self.grads[k].copy_(gk)
-
-    def _substeps(self, scene, st):
-        for i in range(self.k_volume):
-            st = wavefront_step(scene, st, freeze_surface=True,
-                                resolve_pending=(i == 0),
-                                tri_backend=self.tri_backend)
-        return st
 
 
 class _LanesGrad(torch.autograd.Function):
@@ -1120,7 +1181,7 @@ class _WavefrontLoop:
                                                     device=dev)))
         zeros3 = torch.zeros((n_lanes, 3), device=dev)
         self.packed = self._pack_ext(
-            state, zeros3, zeros3,
+            pack_state(state), zeros3, zeros3,
             torch.full((n_lanes,), -1, dtype=i32, device=dev))
         self.fb = torch.zeros((n, 3), device=dev)
         self.next_pixel = torch.full((), n_lanes, dtype=i32, device=dev)
@@ -1243,8 +1304,8 @@ class _WavefrontLoop:
             torch.clamp(p_loc, max=self.n - 1).to(torch.int64)]
 
     @staticmethod
-    def _pack_ext(state, pix_acc, pend_rgb, pend_pix):
-        return torch.cat([pack_state(state), pix_acc, pend_rgb,
+    def _pack_ext(rows, pix_acc, pend_rgb, pend_pix):
+        return torch.cat([rows, pix_acc, pend_rgb,
                           pend_pix.to(torch.float32)[:, None]], dim=1)
 
     def _walkers(self):
@@ -1269,11 +1330,10 @@ class _WavefrontLoop:
         stepped = state.alive
         if self.count_lanes:
             self.lanes += stepped.sum()
-        state = wavefront_step(self.scene, state,
-                               tri_backend=self.tri_backend)
-        state = state._replace(depth=torch.where(stepped, state.depth + 1,
-                                                 state.depth))
-        return self._pack_ext(state, pix_acc, pend_rgb, pend_pix)
+        rows = wavefront_step(self.scene, pack_state(state),
+                              tri_backend=self.tri_backend)
+        rows[:, 31] += stepped.to(torch.float32)  # the depth count
+        return self._pack_ext(rows, pix_acc, pend_rgb, pend_pix)
 
     def _refill(self, state, pix_acc, pend_rgb, pend_pix):
         """Flush finished samples into pix_acc; advance the sample or claim
@@ -1327,12 +1387,9 @@ class _WavefrontLoop:
     def _substeps(self, rows, windowed):
         """The k_volume volume-only substeps of the packed `rows`, in
         place."""
-        st = unpack_state(rows[:, :_PACK_COLS])
-        for i in range(self.k_volume):
-            st = wavefront_step(self.scene, st, freeze_surface=True,
-                                resolve_pending=(i == 0), windowed=windowed,
-                                tri_backend=self.tri_backend)
-        rows[:, :_PACK_COLS].copy_(pack_state(st))
+        rows[:, :_PACK_COLS].copy_(_volume_substeps(
+            wavefront_step, self.scene, rows[:, :_PACK_COLS], self.k_volume,
+            windowed=windowed, tri_backend=self.tri_backend))
 
 
 def _kill_spent(packed, max_steps):

@@ -16,6 +16,15 @@ ray-count probes, the span recorder and profiler traces.
   JAX probes compute.
 * The recorder: `span(name, **attrs)` and `count(name, n)` at the
   program's layer boundaries, kept in memory, read back by `records()`.
+  A request's counters: `subiters`, `lane_slots`, `lanes_alive` (a
+  render), `device_ms.<phase>`, `warmup_device_ms.<phase>`,
+  `nodes.<phase>`, and `launches.step.fused` / `launches.step.chain`
+  (`render.graphs`: its wavefront steps that ran as `ops.step`'s kernels
+  and as the torch chain). The span ring keeps the last 2^18 spans,
+  ~320 bytes each (~84 MB when full; the ring grows as spans come): the
+  render loop records ~3.5 spans a sub-iteration, so it holds ~75,000
+  sub-iterations. A reader that needs a process's requests whole reads
+  them before the ring wraps (`dropped()` says whether it has).
 * `trace(logdir)`: a `torch.profiler` window written as a Chrome trace,
   the recorder's spans of the window merged into it.
 """
@@ -44,16 +53,17 @@ def step_occupancy(scene, width: int, height: int, max_steps: int,
                    tri_backend: str | None = None) -> torch.Tensor:
     """Alive-lane fraction before each wavefront step -> [max_steps]
     (`tri_backend` forces the triangle backend)."""
-    from ..render.integrator import init_state, wavefront_step
+    from ..render.integrator import (init_state, pack_state, unpack_state,
+                                     wavefront_step)
     from ..scene.scene import build_fat_tables
 
     if "mat_fat" not in scene:
         scene = build_fat_tables(scene)
-    state = init_state(scene, width, height, sample_id, seed)
+    rows = pack_state(init_state(scene, width, height, sample_id, seed))
     fracs = []
     for _ in range(max_steps):
-        fracs.append(state.alive.to(torch.float32).mean())
-        state = wavefront_step(scene, state, tri_backend=tri_backend)
+        fracs.append(unpack_state(rows).alive.to(torch.float32).mean())
+        rows = wavefront_step(scene, rows, tri_backend=tri_backend)
     return torch.stack(fracs)
 
 
@@ -67,22 +77,24 @@ def ray_units(scene, width: int, height: int, max_steps: int,
     per shading lane (counted as alive x 2); each k_volume substep fires
     one closest hit per volume lane (counted exactly). `tri_backend`
     forces the triangle backend."""
-    from ..render.integrator import MODE_VOLUME, init_state, wavefront_step
+    from ..render.integrator import (MODE_VOLUME, init_state, pack_state,
+                                     unpack_state, wavefront_step)
     from ..scene.scene import build_fat_tables
 
     if "mat_fat" not in scene:
         scene = build_fat_tables(scene)
-    state = init_state(scene, width, height, sample_id, seed)
+    rows = pack_state(init_state(scene, width, height, sample_id, seed))
     per_step = []
     for _ in range(max_steps):
-        units = 2.0 * state.alive.to(torch.float32).mean()
-        state = wavefront_step(scene, state, tri_backend=tri_backend)
+        units = 2.0 * unpack_state(rows).alive.to(torch.float32).mean()
+        rows = wavefront_step(scene, rows, tri_backend=tri_backend)
         for i in range(k_volume):
+            state = unpack_state(rows)
             vol = state.alive & (state.mode == MODE_VOLUME)
             units = units + vol.to(torch.float32).mean()
-            state = wavefront_step(scene, state, freeze_surface=True,
-                                   resolve_pending=(i == 0),
-                                   tri_backend=tri_backend)
+            rows = wavefront_step(scene, rows, freeze_surface=True,
+                                  resolve_pending=(i == 0),
+                                  tri_backend=tri_backend)
         per_step.append(units)
     return torch.stack(per_step)
 
@@ -98,19 +110,22 @@ def measure_sss_truncation(scene_np, max_steps: int, k_volume: int = 0,
     8192 steps (random-walk-sss.h:281); a truncated walk biases radiance
     down. `integrator.auto_k_volume` thresholds it. `tri_backend` forces
     the triangle backend ("bvh": the JAX probe's)."""
-    from ..render.integrator import MODE_VOLUME, init_state, wavefront_step
+    from ..render.integrator import (MODE_VOLUME, init_state, pack_state,
+                                     unpack_state, wavefront_step)
 
     scene = _probe_scene(scene_np, device)
-    state = init_state(scene, probe, probe, sample_id, seed)
-    started = torch.zeros((), dtype=torch.int64, device=state.org.device)
+    rows = pack_state(init_state(scene, probe, probe, sample_id, seed))
+    started = torch.zeros((), dtype=torch.int64, device=rows.device)
     for _ in range(max_steps):
-        pre = state.mode == MODE_VOLUME
-        state = wavefront_step(scene, state, tri_backend=tri_backend)
+        pre = unpack_state(rows).mode == MODE_VOLUME
+        rows = wavefront_step(scene, rows, tri_backend=tri_backend)
+        state = unpack_state(rows)
         started += (~pre & (state.mode == MODE_VOLUME) & state.alive).sum()
         for i in range(k_volume):
-            state = wavefront_step(scene, state, freeze_surface=True,
-                                   resolve_pending=(i == 0),
-                                   tri_backend=tri_backend)
+            rows = wavefront_step(scene, rows, freeze_surface=True,
+                                  resolve_pending=(i == 0),
+                                  tri_backend=tri_backend)
+    state = unpack_state(rows)
     truncated = (state.alive & (state.mode == MODE_VOLUME)).sum()
     return float(truncated) / max(float(started), 1.0)
 
@@ -166,7 +181,7 @@ class Recorder:
     drops), the last `max_requests` finished requests with their
     counters, and the device-timed event pairs not yet resolved."""
 
-    def __init__(self, capacity: int = 65536, max_requests: int = 8192):
+    def __init__(self, capacity: int = 1 << 18, max_requests: int = 8192):
         self.on = os.environ.get("PBRLAB_TRACE", "1") != "0"
         self.spans = deque(maxlen=capacity)
         self.requests = deque(maxlen=max_requests)

@@ -116,6 +116,13 @@ def _to_torch(state):
     return tint.PathState(*fields)
 
 
+def _step(scene, state, **kw):
+    """The port's `wavefront_step` on a PathState, through its packed
+    rows."""
+    rows = tint.wavefront_step(scene, tint.pack_state(state), **kw)
+    return tint.unpack_state(rows)
+
+
 def _assert_state_close(got, want):
     for name, g, w in zip(want._fields, got, want):
         w = np.asarray(w)
@@ -140,7 +147,7 @@ def test_full_step_matches_jax(scenes, jax_states, jax_dense4, steps):
     if steps:
         assert (np.asarray(state.nee_maxt) >= 0).any()
     want = jint.wavefront_step(scene_j, state, 0)
-    got = tint.wavefront_step(scene_t, _to_torch(state))
+    got = _step(scene_t, _to_torch(state))
     _assert_state_close(got, want)
 
 
@@ -157,8 +164,8 @@ def test_volume_substep_matches_jax(scenes, jax_states, jax_dense4,
     want = jint.wavefront_step(scene_j, state, 0, freeze_surface=True,
                                resolve_pending=resolve_pending,
                                windowed=True)
-    got = tint.wavefront_step(scene_t, _to_torch(state), freeze_surface=True,
-                              resolve_pending=resolve_pending, windowed=True)
+    got = _step(scene_t, _to_torch(state), freeze_surface=True,
+                resolve_pending=resolve_pending, windowed=True)
     _assert_state_close(got, want)
 
 
@@ -210,7 +217,7 @@ def test_step_matches_jax_on_v5_backends(scenes, jax_states, jax_dense4,
         monkeypatch.setattr(jv5, name,
                             partial(getattr(jv5, name), interpret=True))
     want = jint.wavefront_step(scene_j, state, 0, **STEP_KINDS[kind])
-    got = tint.wavefront_step(scene_t, _to_torch(state), **STEP_KINDS[kind])
+    got = _step(scene_t, _to_torch(state), **STEP_KINDS[kind])
     _assert_state_close(got, want)
 
 
@@ -238,7 +245,7 @@ def test_hair_step_matches_jax(hair_scenes, jax_states, jax_dense4, kind):
     state = jax_states(scene_j, 2)
     assert int(np.asarray(state.alive).sum()) > 100
     want = jint.wavefront_step(scene_j, state, 0, **STEP_KINDS[kind])
-    got = tint.wavefront_step(scene_t, _to_torch(state), **STEP_KINDS[kind])
+    got = _step(scene_t, _to_torch(state), **STEP_KINDS[kind])
     _assert_state_close(got, want)
 
 
@@ -262,10 +269,10 @@ def test_colored_hair_step_matches_jax(hair_scenes, jax_states, jax_dense4):
     uncolored = build_fat_tables({**scene_t, "materials": tmats})
     scene_t = {**uncolored, "curve_color": torch.from_numpy(col)}
     want = jint.wavefront_step(scene_j, state, 0)
-    got = tint.wavefront_step(scene_t, _to_torch(state))
+    got = _step(scene_t, _to_torch(state))
     _assert_state_close(got, want)
     # the colors reach the throughput
-    plain = tint.wavefront_step(uncolored, _to_torch(state))
+    plain = _step(uncolored, _to_torch(state))
     assert not torch.equal(got.throughput, plain.throughput)
 
 
@@ -280,7 +287,7 @@ def test_hair_step_shades_hair_lanes(hair_scenes, jax_states, jax_dense4):
     hit = trace_scene(scene_t, state.org, state.direction, state.min_t,
                       torch.full_like(state.min_t, INF))
     assert int(hit["is_curve"].sum()) > 10
-    got = tint.wavefront_step(scene_t, state)
+    got = _step(scene_t, state)
     assert bool(got.alive[hit["is_curve"]].any())
 
 

@@ -528,8 +528,7 @@ def test_step_matches_jax(step_scenes, legacy_states, monkeypatch, backend,
     (`_force_jax_legacy`). The state: JAX's 32x16 camera lanes after two
     steps on that backend. The band of tests/test_torch_integrator.py."""
     from pbrlab_tpu.render import integrator as jint
-    from pbrlab_tpu_torch.render import integrator as tint
-    from test_torch_integrator import _assert_state_close, _to_torch
+    from test_torch_integrator import _assert_state_close, _step, _to_torch
 
     scene_j, scene_t = step_scenes
     state = legacy_states(backend)
@@ -538,8 +537,8 @@ def test_step_matches_jax(step_scenes, legacy_states, monkeypatch, backend,
         walking = np.asarray(state.alive & (state.mode == jint.MODE_VOLUME))
         assert walking.sum() > 5
     want = jint.wavefront_step(scene_j, state, 0, **STEP_KINDS[kind])
-    got = tint.wavefront_step(scene_t, _to_torch(state), tri_backend=backend,
-                              **STEP_KINDS[kind])
+    got = _step(scene_t, _to_torch(state), tri_backend=backend,
+                **STEP_KINDS[kind])
     _assert_state_close(got, want)
 
 

@@ -118,12 +118,13 @@ def test_compact_state_matches_jax(demo):
     dead, walking and surface lanes; both compactions give the same
     permutation (the lane field) and every field equal."""
     scene_j, scene_t = demo
-    state = tint.init_state(scene_t, 32, 32, 0, SEED)
+    rows = tint.pack_state(tint.init_state(scene_t, 32, 32, 0, SEED))
     for _ in range(3):
-        state = tint.wavefront_step(scene_t, state)
+        rows = tint.wavefront_step(scene_t, rows)
         for i in range(2):
-            state = tint.wavefront_step(scene_t, state, freeze_surface=True,
-                                        resolve_pending=(i == 0))
+            rows = tint.wavefront_step(scene_t, rows, freeze_surface=True,
+                                       resolve_pending=(i == 0))
+    state = tint.unpack_state(rows)
     walking = state.alive & (state.mode == tint.MODE_VOLUME)
     assert (~state.alive).sum() > 10 and walking.sum() > 10
     assert (state.alive & ~walking).sum() > 10

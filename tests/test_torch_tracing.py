@@ -3,9 +3,10 @@ records with it: spans nest into requests, each with its request and its
 parent; the ring keeps its bound and counts what it drops; with
 PBRLAB_TRACE=0 nothing is kept and a render keeps its bits; the graph
 runner's spans and timing events (tests/torch_fakes.py's fake
-`torch.cuda`); an eager render's request and its
-live-lane counter; a progressive pass and its edit; a train step's
-forward and backward; the Chrome trace exporter's clock. No JAX: the card
+`torch.cuda`); the fused and chain steps a request's phases make; an
+eager render's request and its live-lane counter; a progressive pass
+and its edit; a train step's forward and backward; the Chrome trace
+exporter's clock. No JAX: the card
 runs the requires_cuda test with `python -m pytest
 tests/test_torch_tracing.py --noconftest -o addopts="" -m requires_cuda`.
 """
@@ -177,6 +178,36 @@ def test_graph_runner_spans_and_event_pairs(recorder, monkeypatch):
     assert runner.warm == {"A", "F"}
 
 
+def test_requests_count_their_fused_and_chain_steps(recorder, monkeypatch):
+    """A request counts its phases' wavefront steps that ran fused and as
+    the chain (`launches.step.fused` / `.chain`): a warm-up's and an eager
+    run's as they happen, a replay's from its capture, none for the
+    capture itself; no other launch counter goes into the request."""
+    from pbrlab_tpu_torch.ops import step
+
+    for module in (dense_v4, step):
+        monkeypatch.setattr(module, "LAUNCHES", dict(module.LAUNCHES))
+    monkeypatch.setitem(graphs.COUNTERS, "v4", dense_v4.LAUNCHES)
+    monkeypatch.setitem(graphs.COUNTERS, "step", step.LAUNCHES)
+
+    def phase():  # a fused step and its dual trace, then a chain step
+        step.LAUNCHES["pre"] += 1
+        step.LAUNCHES["fused"] += 1
+        dense_v4.LAUNCHES["dual"] += 1
+        step.LAUNCHES["chain"] += 1
+
+    runner = graphs.GraphRunner(FakeCuda())
+    with span("render"):
+        for _ in range(4):  # a warm-up, a capture and replay, two replays
+            runner.run("A", phase)
+        graphs.EagerRunner().run("B", phase)
+    rec, = records()
+    assert {k: v for k, v in rec["counters"].items()
+            if k.startswith("launches.")} == {"launches.step.fused": 5,
+                                               "launches.step.chain": 5}
+    assert step.LAUNCHES == {"pre": 5, "fused": 5, "chain": 5}
+
+
 def test_eager_render_request_counts_its_lanes(recorder, sss_scene,
                                                monkeypatch):
     """The render request counts the sub-iterations `return_iters` gives,
@@ -186,8 +217,8 @@ def test_eager_render_request_counts_its_lanes(recorder, sss_scene,
     step = tint.wavefront_step
 
     def counting_step(scene, state, *a, freeze_surface=False, **k):
-        if not freeze_surface:
-            entering.append(int(state.alive.sum()))
+        if not freeze_surface:  # the loop steps its packed rows
+            entering.append(int((state[:, 15] > 0.5).sum()))
         return step(scene, state, *a, freeze_surface=freeze_surface, **k)
 
     monkeypatch.setattr(tint, "wavefront_step", counting_step)
