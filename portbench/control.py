@@ -112,8 +112,10 @@ def main(argv=None):
         print("no CUDA device", file=sys.stderr)
         return 3
     sys.path[:0] = [str(ROOT), str(HERE)]
+    from pbh import runner
+
     with open(ROOT / "BENCHMARK.json") as f:
-        bench = json.load(f)
+        bench = runner.with_held_out(json.load(f))
     control = set(args.seeds[:3] if args.control_seeds is None
                   else args.control_seeds)
     res = readings(torch, bench, args.workload, args.seeds, control,

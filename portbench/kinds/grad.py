@@ -19,6 +19,13 @@ from pbh import cells, gradref, tracing
 
 
 class Grad(cells.Kind):
+    SPAN_REQUEST = "train.step"
+    TINY_TRAFFIC = {"width": 12, "height": 12, "ref_block": 64}
+    CARD_TRAFFIC = {"width": 64, "height": 64, "ref_block": 4096}
+
+    def setup_requests(self):
+        """The steps the reference follows from the scene's leaves."""
+        return self.traffic["ref_steps"]
 
     def setup(self):
         from pbrlab_tpu_torch.parallel.sharding import train_step_builder

@@ -13,6 +13,14 @@ from pbh import cells, tracing
 
 
 class Preview(cells.Kind):
+    SPAN_REQUEST = "progressive.pass"
+    TINY_TRAFFIC = {"width": 12, "height": 12, "check_pixels": 48,
+                    "edit_every": 3}
+    CARD_TRAFFIC = {"width": 64, "height": 64, "check_pixels": 512}
+
+    def setup_requests(self):
+        """The warm-up passes and the edit pass after them."""
+        return self.traffic.get("warmup_passes", 2) + 1
 
     def setup(self):
         from pbrlab_tpu_torch.render.progressive import ProgressiveRenderer

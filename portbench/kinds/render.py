@@ -11,6 +11,13 @@ from pbh import cells, tracing
 
 
 class Render(cells.Kind):
+    SPAN_REQUEST = "render"
+    TINY_TRAFFIC = {"width": 12, "height": 12, "spp": 2, "check_pixels": 48}
+    CARD_TRAFFIC = {"width": 64, "height": 64, "check_pixels": 512}
+
+    def setup_requests(self):
+        """The warm-up renders."""
+        return self.traffic.get("warmup", 1)
 
     def setup(self):
         from pbrlab_tpu_torch.render.integrator import render_lanes_wavefront

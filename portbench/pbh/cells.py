@@ -16,7 +16,16 @@ A kind subclasses `Kind` and gives `setup()`, `request()` (one request
 of the window), `finish_window()`, `profile()` (the traced slice) and
 `compare()` ({number: value} of the window's answers against the
 reference); `kinds/render.py`, `kinds/preview.py` and `kinds/grad.py`
-are the first.
+are the first. It also names, in its own file, what the harness's
+readers and tests need of it, so that a new kind needs no edit
+elsewhere:
+- `SPAN_REQUEST`: the name of the program's request (`utils.profiling`)
+  that one request of the window makes, and `setup_requests()`, how many
+  of them set-up made first (`pbh.spans`); a kind without it has no
+  span metric;
+- `TINY_TRAFFIC` and `CARD_TRAFFIC`: the traffic's keys that the tests
+  shrink, on the CPU and on a card (`runner.resize_for`).
+A subclass inherits them.
 """
 from __future__ import annotations
 
@@ -33,6 +42,8 @@ def seed_words(seed, n):
 
 
 class Kind:
+    SPAN_REQUEST = None  # no span metric reads the kind's requests
+
     def __init__(self, torch, cell, config, traffic, seed, device):
         self.torch = torch
         self.cell, self.config, self.traffic = cell, config, traffic

@@ -4,7 +4,9 @@
 `metric_names` the metrics the cell reports (end to end with trace off,
 per layer with trace on), and `run_cell` runs it: set-up, window, the
 device peak, the profiled slice when traced, the comparison, and the
-metrics, each read by its reader in `portbench/metrics/`.
+metrics, each read by its reader in `portbench/metrics/`. `resize_for`
+gives the sizes a cell's tests run it at, from its scene's and its
+kind's files; `with_held_out` adds the cells held out of BENCHMARK.json.
 """
 from __future__ import annotations
 
@@ -12,7 +14,17 @@ import json
 import time
 from pathlib import Path
 
-from . import byname, cells, checks
+from . import byname, cells, checks, scenes
+
+
+def with_held_out(bench):
+    """`bench` and the cells of `portbench/held_out.json` with their
+    metrics: cells out of BENCHMARK.json while the program fails them,
+    which the tests and `control.py` still run and `run.py` does not."""
+    with open(byname.HERE / "held_out.json") as f:
+        held = json.load(f)
+    return {**bench, **{k: bench[k] + held[k]
+                        for k in ("workloads", "end_to_end", "per_layer")}}
 
 
 def resolve(bench, root, name):
@@ -24,6 +36,24 @@ def resolve(bench, root, name):
     with open(Path(root) / entry["file"]) as f:
         config = json.load(f)
     return cell, entry, config, byname.data("traffic", cell["traffic"])
+
+
+def resize_for(bench, root, name, where):
+    """The `resize` of `run_cell` at which the tests run cell `name`:
+    `where` "cpu", the scene's `TINY_CONFIG` and the kind's
+    `TINY_TRAFFIC`; "card", the kind's `CARD_TRAFFIC` (the configuration
+    as it is)."""
+    _, _, config, traffic = resolve(bench, root, name)
+    kind = cells.load(traffic["kind"])
+    attr = {"cpu": "TINY_TRAFFIC", "card": "CARD_TRAFFIC"}[where]
+    sizes = getattr(kind, attr, None)
+    if sizes is None:
+        raise AttributeError(f"traffic kind {traffic['kind']!r} "
+                             f"({kind.__name__}) gives no {attr}")
+    if where == "card":
+        return {"traffic": dict(sizes)}
+    tiny = scenes.load(config["scene"]).TINY_CONFIG
+    return {"config": dict(tiny), "traffic": dict(sizes)}
 
 
 def metric_names(bench, cell_name, trace):

@@ -2,26 +2,24 @@
 requests that the port's recorder (`pbrlab_tpu_torch.utils.profiling`)
 kept in the run's process, split into set-up's and the window's.
 
-A kind's requests are the recorder's requests of one name, in order:
-`render` (render), `progressive.pass` (preview), `train.step` (grad).
-The window's are the `run.attempted` that follow set-up's: the render
-kind's `warmup` calls (traffic, default 1), the preview kind's
-`warmup_passes` (default 2) and its edit pass, the grad kind's
-`ref_steps` steps. Set-up's requests are every request of any name that
+A kind's requests are the recorder's requests of the name its class
+gives (`SPAN_REQUEST`: `render` for render, `progressive.pass` for
+preview, `train.step` for grad), in order. The window's are the
+`run.attempted` that follow set-up's, of which the kind says how many
+there are (`run.setup_requests()`: the render kind's `warmup` calls, the
+preview kind's `warmup_passes` and its edit pass, the grad kind's
+`ref_steps` steps). Set-up's requests are every request of any name that
 finished before the window's first (the fat tables' build and the
 kernel library's load among them). The traced slice's requests come
 after the window and are left out.
 
-`split` gives None where there is nothing to read: a program without the
-recorder (an older checkout), the recorder off (PBRLAB_TRACE=0), fewer
-requests than the window's, or a ring that dropped records.
+`split` gives None where there is nothing to read: a kind that names no
+request, a program without the recorder (an older checkout), the
+recorder off (PBRLAB_TRACE=0), fewer requests than the window's, or a
+ring that dropped records.
 """
 from __future__ import annotations
 
-KINDS = {"render": ("render", lambda t: t.get("warmup", 1)),
-         "preview": ("progressive.pass",
-                     lambda t: t.get("warmup_passes", 2) + 1),
-         "grad": ("train.step", lambda t: t["ref_steps"])}
 # the spans of building a phase's graph: its eager warm-up, its capture
 # and its instantiation
 BUILD = ("graphs.warmup", "graphs.capture", "graphs.instantiate")
@@ -41,14 +39,14 @@ def split(run):
     """(set-up's requests, the window's requests) of `run` (a kind after
     its window), each a list of `profiling.records()` entries; or None."""
     profiling = _profiling()
-    if profiling is None or run.traffic.get("kind") not in KINDS:
+    name = getattr(type(run), "SPAN_REQUEST", None)
+    if profiling is None or name is None:
         return None
     recs = profiling.records()
     if not recs or any(profiling.dropped().values()):
         return None
-    name, skip = KINDS[run.traffic["kind"]]
     mine = [r for r in recs if r["name"] == name]
-    first = skip(run.traffic)
+    first = run.setup_requests()
     window = mine[first:first + run.attempted]
     if not run.attempted or len(window) < run.attempted:
         return None

@@ -15,6 +15,8 @@ from conftest import HERE, ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+# and the cells held out of it while the program fails them
+HELD = runner.with_held_out(BENCH)
 
 
 def test_top_level_keys():
@@ -26,55 +28,81 @@ def test_top_level_keys():
     assert len(json.dumps(BENCH)) < 64 * 1024
 
 
-def test_names_units_and_keys():
-    for c in BENCH["configs"]:
+def _entries_keep_the_contract(bench):
+    for c in bench["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and c["file"].startswith("portbench/")
-    for w in BENCH["workloads"]:
+    for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"])
         assert w["chips"] in (1, 4) and len(w["why"]) <= 200
     names = set()
-    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+    for m in bench["end_to_end"] + bench["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert m["better"] in ("lower", "higher")
         assert m["name"] not in names
         names.add(m["name"])
-    for m in BENCH["end_to_end"]:
+    for m in bench["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
-    e2e = {m["name"] for m in BENCH["end_to_end"]}
-    cells_named = {w["name"] for w in BENCH["workloads"]}
-    for m in BENCH["per_layer"]:
+    e2e = {m["name"] for m in bench["end_to_end"]}
+    cells_named = {w["name"] for w in bench["workloads"]}
+    for m in bench["per_layer"]:
         assert m["moves"] in e2e
         # every per-layer metric lists the cells whose run reads it
         assert m["workloads"] and set(m["workloads"]) <= cells_named
     assert "setup_s" in e2e
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_names_units_and_keys():
+    _entries_keep_the_contract(BENCH)
+
+
+def test_held_out_entries_keep_the_contract():
+    """The held-out cells' entries could go back into BENCHMARK.json as
+    they are."""
+    _entries_keep_the_contract(HELD)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in HELD["workloads"]])
 def test_cell_resolves_to_its_files(cell):
     """Every cell finds its configuration and traffic files, and every
     metric it reports has a reader."""
-    w, entry, config, traffic = runner.resolve(BENCH, ROOT, cell)
+    w, entry, config, traffic = runner.resolve(HELD, ROOT, cell)
     assert config["max_steps"] > 0 and set(traffic["limits"])
     assert callable(scenes.load(config["scene"]).make_scene)
     assert issubclass(cells.load(traffic["kind"]), cells.Kind)
     for trace in (False, True):
-        names = runner.metric_names(BENCH, cell, trace)
+        names = runner.metric_names(HELD, cell, trace)
         assert names
         for m in names:
             assert callable(runner.reader(m))
-    assert "setup_s" in runner.metric_names(BENCH, cell, False)
+    assert "setup_s" in runner.metric_names(HELD, cell, False)
+
+
+def test_held_out_cells_stay_out_of_the_benchmark():
+    """A held-out cell and its metrics are out of BENCHMARK.json, and
+    `run.py` refuses the cell, printing no result."""
+    import run
+
+    held = [w["name"] for w in HELD["workloads"][len(BENCH["workloads"]):]]
+    assert held and not set(held) & {w["name"] for w in BENCH["workloads"]}
+    for m in HELD["end_to_end"] + HELD["per_layer"]:
+        if m not in BENCH["end_to_end"] + BENCH["per_layer"]:
+            assert set(m["workloads"]) <= set(held)
+    for cell in held:
+        assert run.main(["--workload", cell, "--seed", "1",
+                         "--seconds", "1"]) == 2
 
 
 def test_unknown_scene_kind_or_mix_raises():
     """A name with no file behind it is refused, not served by another
     file: a configuration naming a scene that is not there renders no
     cornellbox in its place."""
-    for load in (scenes.load, cells.load):
+    for load, missing in ((scenes.load, "no_such_scene"),
+                          (cells.load, "no_such_kind")):
         with pytest.raises(KeyError):
-            load("hair")
+            load(missing)
         with pytest.raises(ValueError):
             load("../pbh/cells")
     cell = next(w for w in BENCH["workloads"] if w["traffic"])
@@ -86,13 +114,60 @@ def test_unknown_scene_kind_or_mix_raises():
     import torch
 
     config = {**runner.resolve(BENCH, ROOT, cell["name"])[2],
-              "scene": "hair"}
+              "scene": "no_such_scene"}
     with pytest.raises(KeyError):
         cells.load("render")(torch, cell, config, {}, 1, torch.device("cpu"))
 
 
+# each cell's test sizes, as its scene and kind files give them
+TEST_SIZES = {
+    "cornellbox.render": ({"subdiv": 1},
+                          {"width": 12, "height": 12, "spp": 2,
+                           "check_pixels": 48}),
+    "xl.render": ({"subdiv": 1, "irregular": True},
+                  {"width": 12, "height": 12, "spp": 2, "check_pixels": 48}),
+    "cornellbox.preview": ({"subdiv": 1},
+                           {"width": 12, "height": 12, "check_pixels": 48,
+                            "edit_every": 3}),
+    "cornellbox.grad": ({"subdiv": 1},
+                        {"width": 12, "height": 12, "ref_block": 64}),
+}
+CARD_SIZES = {"render": {"width": 64, "height": 64, "check_pixels": 512},
+              "preview": {"width": 64, "height": 64, "check_pixels": 512},
+              "grad": {"width": 64, "height": 64, "ref_block": 4096}}
+
+
+@pytest.mark.parametrize("cell", sorted(TEST_SIZES))
+def test_resize_for_gives_each_cells_test_sizes(cell):
+    """`runner.resize_for` builds a cell's test sizes from its scene's
+    `TINY_CONFIG` and its kind's `TINY_TRAFFIC` / `CARD_TRAFFIC`: the
+    sizes these cells' tests ran at when they were keyed by cell name."""
+    _, _, config, traffic = runner.resolve(HELD, ROOT, cell)
+    tiny = runner.resize_for(HELD, ROOT, cell, "cpu")
+    want_config, want_traffic = TEST_SIZES[cell]
+    assert {**config, **tiny["config"]} == {**config, **want_config}
+    assert tiny["traffic"] == want_traffic
+    assert runner.resize_for(HELD, ROOT, cell, "card") == {
+        "traffic": CARD_SIZES[traffic["kind"]]}
+
+
+def test_kind_without_test_sizes_names_itself(monkeypatch):
+    """A kind that gives no test sizes fails naming the kind and what it
+    lacks."""
+    class Bare(cells.Kind):
+        pass
+
+    monkeypatch.setattr(cells, "load", lambda name: Bare)
+    for where, attr in (("cpu", "TINY_TRAFFIC"), ("card", "CARD_TRAFFIC")):
+        with pytest.raises(AttributeError,
+                           match=rf"'render' \(Bare\) gives no {attr}"):
+            runner.resize_for(BENCH, ROOT, "cornellbox.render", where)
+
+
 SCENE = '''"""box: the cornellbox's walls and light around one diffuse sphere."""
 from pbh.meshes import RawScene, icosphere, quad
+
+TINY_CONFIG = {"subdiv": 0}
 
 
 def make_scene(config):
@@ -127,7 +202,11 @@ KIND = Stills
 def test_added_cell_config_and_metric_need_no_edit(tmp_path):
     """A cell, a configuration, a scene, a traffic kind, a traffic mix and
     a per-layer metric added as new files and new entries are run and
-    read, in a copy of the benchmark, with no file of it edited."""
+    read, in a copy of the benchmark, with no file of it edited. The
+    cell's test sizes come from its own files (the scene's `TINY_CONFIG`,
+    the kind's `TINY_TRAFFIC`, inherited from render), it matches the
+    reference at them, and `spans.split` finds its window by the request
+    name its kind inherits."""
     bench_dir = tmp_path / "portbench"
     shutil.copytree(HERE, bench_dir, ignore=shutil.ignore_patterns(
         "tests", "__pycache__"))
@@ -136,7 +215,7 @@ def test_added_cell_config_and_metric_need_no_edit(tmp_path):
     (bench_dir / "scenes" / "box.py").write_text(SCENE)
     (bench_dir / "kinds" / "stills.py").write_text(KIND)
     (bench_dir / "configs" / "tiny.json").write_text(json.dumps(
-        {"scene": "box", "subdiv": 1, "max_steps": 4, "k_volume": 1}))
+        {"scene": "box", "subdiv": 2, "max_steps": 4, "k_volume": 1}))
     (bench_dir / "traffic" / "stills_tiny.json").write_text(json.dumps(
         {"kind": "stills", "width": 8, "height": 8, "spp": 1, "warmup": 1,
          "check_pixels": 16, "slice": {"width": 8, "height": 8, "spp": 1},
@@ -165,6 +244,18 @@ sys.path[:0] = [{str(bench_dir)!r}, {str(ROOT)!r}]
 import torch
 from pbh import runner
 bench = json.load(open({str(tmp_path / 'BENCHMARK.json')!r}))
+from pbh import spans
+resize = runner.resize_for(bench, {str(tmp_path)!r}, 'tiny.stills', 'cpu')
+kinds = []
+tiny, tiny_nums = runner.run_cell(
+    torch, bench, {str(tmp_path)!r}, 'tiny.stills', 7, 0.3, False,
+    torch.device('cpu'), time.perf_counter(), fault=kinds.append,
+    resize=resize)
+got = spans.split(kinds[0])
+sizes = [resize, tiny['correct'], tiny_nums, tiny['attempted'],
+         None if got is None else len(got[1]),
+         [kinds[0].w, kinds[0].h, kinds[0].spp, len(kinds[0].pixels),
+          len(kinds[0].raw.meshes[-1].faces)]]
 res, nums = runner.run_cell(torch, bench, {str(tmp_path)!r}, 'tiny.stills',
                             5, 0.3, False, torch.device('cpu'),
                             time.perf_counter())
@@ -175,16 +266,23 @@ from pbh import cells, scenes
 kind = cells.load('stills')
 print(json.dumps([res['correct'], sorted(res['metrics']), traced, done,
                   kind.__name__, len(scenes.load('box').make_scene(
-                      {{'subdiv': 1}}).meshes), res['attempted']]))
+                      {{'subdiv': 1}}).meshes), res['attempted'], sizes]))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=600, cwd=tmp_path)
     assert out.returncode == 0, out.stderr[-3000:]
-    correct, metrics, traced, done, kind, meshes, attempted = json.loads(
-        out.stdout.strip().splitlines()[-1])
+    correct, metrics, traced, done, kind, meshes, attempted, sizes = \
+        json.loads(out.stdout.strip().splitlines()[-1])
     assert correct and metrics == ["samples_per_s", "setup_s"]
     assert "renders_done.tiny" in traced and done >= 1
     assert kind == "Stills" and meshes == 4 and attempted >= 1
+    resize, tiny_correct, tiny_nums, tiny_attempted, window, shape = sizes
+    # the scene's own TINY_CONFIG, the render kind's TINY_TRAFFIC
+    assert resize == {"config": {"subdiv": 0},
+                      "traffic": cells.load("render").TINY_TRAFFIC}
+    assert shape == [12, 12, 2, 48, 20]  # subdiv 0: the icosahedron
+    assert tiny_correct, tiny_nums
+    assert window == tiny_attempted >= 1
     after = {p.relative_to(bench_dir): p.read_bytes()
              for p in bench_dir.rglob("*")
              if p.is_file() and "__pycache__" not in p.parts}

@@ -2,7 +2,9 @@
 program (its kernels' plain versions) against the plain reference, the
 precision control (the reference in bfloat16 in the program's place),
 and a run with the timed path broken underneath, once for each fault a
-cell can have; and the cells' runs on a card (requires_cuda)."""
+cell can have; and the cells' runs on a card (requires_cuda). Each cell
+runs at the sizes its scene's and its kind's files give for tests
+(`runner.resize_for`), so a new cell needs no edit here."""
 import json
 import time
 
@@ -14,21 +16,8 @@ from pbh import checks, faults, runner
 
 from conftest import ROOT
 
-BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-TINY = {
-    "cornellbox.render": {"config": {"subdiv": 1},
-                          "traffic": {"width": 12, "height": 12, "spp": 2,
-                                      "check_pixels": 48}},
-    "xl.render": {"config": {"subdiv": 1, "irregular": True},
-                  "traffic": {"width": 12, "height": 12, "spp": 2,
-                              "check_pixels": 48}},
-    "cornellbox.preview": {"config": {"subdiv": 1},
-                           "traffic": {"width": 12, "height": 12,
-                                       "check_pixels": 48, "edit_every": 3}},
-    "cornellbox.grad": {"config": {"subdiv": 1},
-                        "traffic": {"width": 12, "height": 12,
-                                    "ref_block": 64}},
-}
+# BENCHMARK.json's cells and the held-out ones (`runner.with_held_out`)
+BENCH = runner.with_held_out(json.loads((ROOT / "BENCHMARK.json").read_text()))
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
@@ -43,7 +32,8 @@ def few_threads():
 def run(cell, seed=11, fault=None, seconds=0.0):
     return runner.run_cell(torch, BENCH, ROOT, cell, seed, seconds, False,
                            torch.device("cpu"), time.perf_counter(),
-                           fault=fault, resize=TINY[cell])
+                           fault=fault,
+                           resize=runner.resize_for(BENCH, ROOT, cell, "cpu"))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -59,7 +49,8 @@ def test_precision_control_fails(cell):
     """The reference computed in bfloat16 in the program's place reads over
     the cell's limits."""
     out = control.readings(torch, BENCH, cell, [7], {7}, torch.device("cpu"),
-                           resize=TINY[cell], log=lambda s: None)
+                           resize=runner.resize_for(BENCH, ROOT, cell, "cpu"),
+                           log=lambda s: None)
     (_, low), = out["control"]
     limits = runner.resolve(BENCH, ROOT, cell)[3]["limits"]
     assert not checks.judge({k: (low[k], limits[k]) for k in limits}), low
@@ -81,11 +72,8 @@ def test_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
 def test_cell_on_the_card(cell, cuda_device):
     """Each cell at a reduced size on the card: the kernels' answers
     against the reference."""
-    sizes = {"render": {"width": 64, "height": 64, "check_pixels": 512},
-             "preview": {"width": 64, "height": 64, "check_pixels": 512},
-             "grad": {"width": 64, "height": 64, "ref_block": 4096}}
-    traffic = runner.resolve(BENCH, ROOT, cell)[3]
     res, numbers = runner.run_cell(
         torch, BENCH, ROOT, cell, 3, 1.0, False, cuda_device,
-        time.perf_counter(), resize={"traffic": sizes[traffic["kind"]]})
+        time.perf_counter(),
+        resize=runner.resize_for(BENCH, ROOT, cell, "card"))
     assert res["correct"], numbers

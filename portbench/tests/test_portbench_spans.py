@@ -9,11 +9,12 @@ import time
 import pytest
 import torch
 
-from pbh import runner, spans
+from pbh import cells, runner, spans
 
 from conftest import ROOT
 
-BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+# BENCHMARK.json's cells and the held-out ones (`runner.with_held_out`)
+BENCH = runner.with_held_out(json.loads((ROOT / "BENCHMARK.json").read_text()))
 TINY = {
     "render": ("cornellbox.render",
                {"config": {"subdiv": 1},
@@ -47,7 +48,7 @@ def _run(kind, seconds):
 
     profiling.reset()
     cell, resize = TINY[kind]
-    name = spans.KINDS[kind][0]
+    name = cells.load(kind).SPAN_REQUEST
     seen = {"made": []}
 
     def watch(k):
@@ -76,11 +77,9 @@ def test_window_is_the_requests_the_kind_made(kind, monkeypatch):
     setup, window = spans.split(run)
     assert [r["id"] for r in window] == made
     assert setup and max(r["id"] for r in setup) < made[0]
-    name = spans.KINDS[kind][0]
+    name = type(run).SPAN_REQUEST
     # set-up's own requests of the kind: its warm-ups
-    skip = spans.KINDS[kind][1](runner.resolve(BENCH, ROOT,
-                                               TINY[kind][0])[3])
-    assert sum(r["name"] == name for r in setup) == skip
+    assert sum(r["name"] == name for r in setup) == run.setup_requests()
     cell = TINY[kind][0]
     for m in NEW:
         if cell in next(x["workloads"] for x in BENCH["per_layer"]
@@ -96,3 +95,30 @@ def test_window_is_the_requests_the_kind_made(kind, monkeypatch):
     profiling.reset()
     assert spans.split(run) is None
     assert all(runner.reader(m)(run) is None for m in NEW)
+
+
+def test_fused_share_over_the_windows_steps(monkeypatch):
+    """step_fused_share: the window's fused steps over all its steps, summed
+    over its requests (not a mean of per-request shares); None where
+    neither counter counted (the CPU) or there is nothing to read."""
+    window = [{"counters": {"launches.step.fused": 30}},
+              {"counters": {"launches.step.fused": 10,
+                            "launches.step.chain": 30}}]
+    read = runner.reader("step_fused_share.render")
+    assert read is runner.reader("step_fused_share.preview")
+    monkeypatch.setattr(spans, "split", lambda run: ([], window))
+    assert read(None) == pytest.approx(100.0 * 40 / 70)
+    monkeypatch.setattr(spans, "split", lambda run: ([], [{"counters": {}}]))
+    assert read(None) is None
+    monkeypatch.setattr(spans, "split", lambda run: None)
+    assert read(None) is None
+
+
+def test_kind_without_a_request_name_has_no_spans():
+    """A kind that names no program request is read by no span metric."""
+    class Bare(cells.Kind):
+        pass
+
+    run = Bare.__new__(Bare)
+    run.attempted = 1
+    assert Bare.SPAN_REQUEST is None and spans.split(run) is None
